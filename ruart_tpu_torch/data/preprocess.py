@@ -1,0 +1,468 @@
+"""Host featurization: raw datum -> preprocessed datum with vocabulary ids.
+
+The serving part of ``ruart_tpu/data/preprocess.py`` (itself a rebuild of
+the reference pipeline, `Utils/CoQAPreprocess.py:93-477`): the same raw
+schema in, the same preprocessed schema out.
+
+raw datum in  : question / question_id / file_path / image_width/height /
+                answers / <ocr_name>: [{word, pos(8 px quad), cnt?}] /
+                <od_name>: [{object, pos(4 center/size px)}]
+preprocessed  : annotated_question {word, pos_id, ent_id, wordid, ...},
+                orign_answers, per-source OCR/OD lists with normalized
+                boxes, per-candidate ANLS/ACC, synthesized n-gram
+                candidates with merged boxes, vocabulary ids
+
+Left out of this copy: msgpack and all file IO (the offline artifacts),
+PHOC embeddings (built by native C++) and spaCy — tokenization and tagging
+always use the rule-based featurizer (``ruart_tpu_torch.text.featurizer``),
+so the tags equal those of a spaCy-free JAX run.
+"""
+
+from __future__ import annotations
+
+import os
+from collections import Counter
+from itertools import chain
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ruart_tpu_torch.core.config import Config
+from ruart_tpu_torch.core.constants import RESERVED_WORDS
+from ruart_tpu_torch.eval import metrics
+from ruart_tpu_torch.text import featurizer
+
+
+def annotate(text: str) -> Dict[str, List]:
+    """Tokenize + tag one string into the reference's 'process' schema
+    (`CoQAPreprocess.py:566-599`): word / lemma / pos / pos_id / ent /
+    ent_id / offsets / sentences."""
+    words, pos_ids, ent_ids = featurizer.tokenize_tag(text)
+    inv_pos = {v: k for k, v in featurizer.POS.items()}
+    inv_ent = {v: k for k, v in featurizer.ENT.items()}
+    lemmas = list(words)
+    pos = [inv_pos.get(p, "") for p in pos_ids]
+    ents = [inv_ent.get(e, "O") for e in ent_ids]
+    # token offsets over the pre_proc'd text
+    processed = featurizer.pre_proc(text.lower())
+    offsets = []
+    p = 0
+    for w in words:
+        found = processed.find(w, p)
+        if found < 0:
+            found = p
+        offsets.append((found, found + len(w)))
+        p = found + len(w)
+    return {
+        "word": words,
+        "lemma": lemmas,
+        "pos": pos,
+        "pos_id": pos_ids,
+        "ent": ents,
+        "ent_id": ent_ids,
+        "offsets": offsets,
+        "sentences": [(0, len(words))],
+    }
+
+
+def get_raw_context_offsets(words: Sequence[str], raw_text: str) -> List[tuple]:
+    """Token offsets into the raw (unprocessed) text
+    (`CoQAPreprocess.get_raw_context_offsets:603-617`)."""
+    out = []
+    p = 0
+    for token in words:
+        while p < len(raw_text) and raw_text[p].isspace():
+            p += 1
+        out.append((p, p + len(token)))
+        p += len(token)
+    return out
+
+
+def token2id_sent(
+    sent: Sequence[str], w2id: Dict[str, int], unk_id: int = 1
+) -> List[int]:
+    return [w2id.get(w, unk_id) for w in sent]
+
+
+def normalize_ocr_box(pos: Sequence[float], width: int, height: int) -> List[float]:
+    """8-dim pixel quad -> [0,1] normalized (`CoQAPreprocess.py:220-222`)."""
+    out = list(pos)
+    for j in range(4):
+        out[2 * j] = out[2 * j] / width
+        out[2 * j + 1] = out[2 * j + 1] / height
+    return out
+
+
+_ZERO8 = [0] * 8
+
+
+def _normalize_boxes_batch(items: Sequence[dict], width: int, height: int):
+    """One numpy divide over a datum's 8-dim quads instead of a python
+    call per box — bit-identical to :func:`normalize_ocr_box` (same
+    float64 divisions). Falls back to the scalar path on ragged input."""
+    if not items:
+        return []
+    try:
+        mat = np.array(
+            [item.get("pos", _ZERO8) for item in items], dtype=np.float64
+        )
+        if mat.ndim != 2 or mat.shape[1] != 8:
+            raise ValueError
+    except ValueError:
+        return [
+            normalize_ocr_box(item.get("pos", [0] * 8), width, height)
+            for item in items
+        ]
+    mat[:, 0::2] /= width
+    mat[:, 1::2] /= height
+    return mat.tolist()
+
+
+def _normalize_boxes_corpus(
+    raw: Sequence[dict], ocr_names: Sequence[str]
+) -> List[List[list]]:
+    """Normalized quads for every (datum, ocr source) group — iteration
+    order ``for datum in raw: for name in ocr_names`` — computed with ONE
+    vectorized float64 divide over the whole corpus. Bit-identical to
+    per-group :func:`_normalize_boxes_batch` (same IEEE per-element
+    divisions); groups with non-8-length quads fall back to it."""
+    plans: List[tuple] = []  # (items, W, H, fast)
+    counts: List[int] = []   # per non-empty fast group
+    gw: List[float] = []
+    gh: List[float] = []
+    total = 0
+    for datum in raw:
+        W, H = datum["image_width"], datum["image_height"]
+        for name in ocr_names:
+            items = datum.get(name, [])
+            try:
+                fast = all(len(it.get("pos", _ZERO8)) == 8 for it in items)
+            except TypeError:
+                fast = False  # unsized pos: the per-group path decides
+            if fast and items:
+                counts.append(len(items))
+                gw.append(W)
+                gh.append(H)
+                total += len(items)
+            plans.append((items, W, H, fast))
+    mats = None
+    if total:
+        try:
+            mat = np.fromiter(
+                chain.from_iterable(
+                    it.get("pos", _ZERO8)
+                    for items, _, _, fast in plans
+                    if fast
+                    for it in items
+                ),
+                np.float64,
+                total * 8,
+            ).reshape(total, 8)
+            cnt = np.asarray(counts)
+            mat[:, 0::2] /= np.repeat(np.asarray(gw, np.float64), cnt)[:, None]
+            mat[:, 1::2] /= np.repeat(np.asarray(gh, np.float64), cnt)[:, None]
+            mats = mat.tolist()
+        except (TypeError, ValueError):
+            mats = None  # non-numeric quad somewhere: per-group fallback
+    out: List[List[list]] = []
+    k = 0
+    for items, W, H, fast in plans:
+        if fast and mats is not None:
+            out.append(mats[k : k + len(items)])
+            k += len(items)
+        else:
+            out.append(_normalize_boxes_batch(items, W, H))
+            if fast:
+                k += len(items)
+    return out
+
+
+def od_center_to_quad(pos: Sequence[float], width: int, height: int) -> List[float]:
+    """OD (cx, cy, w, h) px -> normalized 4-corner quad
+    (`CoQAPreprocess.py:249-259`, including the int() half-size truncation)."""
+    cx, cy, w, h = pos
+    hw, hh = int(w / 2), int(h / 2)
+    quad = [
+        cx - hw, cy - hh, cx + hw, cy - hh,
+        cx + hw, cy + hh, cx - hw, cy + hh,
+    ]
+    for j in range(4):
+        quad[2 * j] = quad[2 * j] / width
+        quad[2 * j + 1] = quad[2 * j + 1] / height
+    return quad
+
+
+def merge_quads(a: Sequence[float], b: Sequence[float]) -> List[float]:
+    """Bounding merge of two normalized quads: min over the left/top corner
+    coords (idx 0,1,3,4 per reference quirk) and max elsewhere
+    (`CoQAPreprocess.py:395-403`)."""
+    out = list(a)
+    for i in range(8):
+        if i in (0, 1, 3, 4):
+            out[i] = min(out[i], b[i])
+        else:
+            out[i] = max(out[i], b[i])
+    return out
+
+
+class Preprocessor:
+    """The in-memory featurization steps of the offline pipeline: annotate
+    (:meth:`_process_data`), build the word vocabulary
+    (:meth:`_build_vocab`) and assign ids + synthesize n-gram candidates
+    (:meth:`_assign_ids`)."""
+
+    def __init__(self, cfg: Config):
+        self.cfg = cfg
+        self.opt = cfg.opt
+        self.n_gram = int(self.opt.get("n_gram", 2))
+        self.train_vocab: Optional[List[str]] = None
+        # None = full reference schema in gram candidates; a key tuple
+        # restricts the synthesized window word-dicts (serving sets this —
+        # the runtime dataset reads only word/wordid/pos_id/ent_id)
+        self.gram_word_keys: Optional[Tuple[str, ...]] = None
+
+    def _names(self):
+        ocr_names = str(
+            self.opt.get("preprocess_ocr_name", "OCR")
+        ).split(",")
+        od_names = str(self.opt.get("preprocess_od_name", "OD")).split(",")
+        gram_names = [
+            t + f"_gram{self.n_gram}"
+            for t in ocr_names
+            if t != "distractors" and "ES_ocr" not in t
+        ]
+        return ocr_names, od_names, gram_names
+
+    def _process_data(self, raw: List[dict]) -> List[dict]:
+        ocr_names, od_names, _ = self._names()
+        # dedupe strings across the corpus for one-shot annotation
+        ocr_dict: Dict[str, int] = {}
+        od_dict: Dict[str, int] = {}
+        ocr_strs: List[str] = []
+        od_strs: List[str] = []
+        data = []
+        norm_all = _normalize_boxes_corpus(raw, ocr_names)
+        g = 0
+        for datum in raw:
+            W, H = datum["image_width"], datum["image_height"]
+            out = {
+                "question": datum["question"],
+                "filename": datum.get("file_path", datum.get("filename", "")),
+                "question_id": datum["question_id"],
+                "orign_answers": datum.get("answers", []),
+            }
+            for name in ocr_names:
+                out[name] = []
+                items = datum.get(name, [])
+                norm = norm_all[g]
+                g += 1
+                for item, npos in zip(items, norm):
+                    word = item["word"].lower()
+                    if word not in ocr_dict:
+                        ocr_dict[word] = len(ocr_strs)
+                        ocr_strs.append(word)
+                    entry = {
+                        "word": word,
+                        "pos": npos,
+                        "original": item["word"],
+                        "ANLS": item.get("ANLS", 0),
+                        "ACC": item.get("ACC", 0),
+                    }
+                    if "cnt" in item:
+                        entry["cnt"] = item["cnt"]
+                    if "idx" in item:
+                        entry["idx"] = item["idx"]
+                    out[name].append(entry)
+            for name in od_names:
+                out[name] = []
+                for item in datum.get(name, []):
+                    word = item["object"].lower()
+                    if word not in od_dict:
+                        od_dict[word] = len(od_strs)
+                        od_strs.append(word)
+                    out[name].append(
+                        {
+                            "object": word,
+                            "pos": od_center_to_quad(item["pos"], W, H),
+                            "original": item["object"],
+                        }
+                    )
+            data.append(out)
+
+        ocr_ann = [annotate(s) for s in ocr_strs]
+        od_ann = [annotate(s) for s in od_strs]
+        for out in data:
+            out["annotated_question"] = annotate(out["question"])
+            out["answers"] = [annotate(a) for a in out["orign_answers"]]
+            for name in ocr_names:
+                for item in out[name]:
+                    # per-item dict copy, token lists shared read-only:
+                    # ids_for adds keys into the item's own dict, nothing
+                    # mutates the annotation lists in place
+                    item["word"] = dict(ocr_ann[ocr_dict[item["word"]]])
+            for name in od_names:
+                for item in out[name]:
+                    item["object"] = dict(od_ann[od_dict[item["object"]]])
+        return data
+
+    def _build_vocab(self, data: List[dict]) -> List[str]:
+        """Frequency-sorted vocab: answer/question tokens first, then the
+        rest, reserved ids 0..4 (`CoQAPreprocess.py:503-537`)."""
+        if "GLOVE" in self.opt and "FastText" not in self.opt:
+            glove_file = os.path.join(
+                str(self.opt.get("datadir", "")),
+                str(self.opt.get("INIT_WORD_EMBEDDING_FILE", "")),
+            )
+            if os.path.isfile(glove_file):
+                # the JAX package filters the vocabulary by this file; the
+                # port reads no files, so refuse rather than differ
+                raise NotImplementedError(
+                    "vocabulary filtering by INIT_WORD_EMBEDDING_FILE "
+                    "(GLOVE without FastText)"
+                )
+        ocr_names, od_names, _ = self._names()
+        counter_qa: Counter = Counter()
+        counter_c: Counter = Counter()
+        for d in data:
+            counter_c.update(d["annotated_question"]["word"])
+            for a in d["answers"]:
+                counter_qa.update(a["word"])
+            for name in ocr_names:
+                for item in d[name]:
+                    counter_c.update(item["word"]["word"])
+            for name in od_names:
+                for item in d[name]:
+                    counter_c.update(item["object"]["word"])
+        counter = counter_c + counter_qa
+        vocab = sorted(counter_qa, key=counter_qa.get, reverse=True)
+        # lexicographic pre-sort: a set's iteration order is hash-randomized
+        # per process, so equal-count ties need a deterministic order
+        vocab += sorted(
+            sorted(counter_c.keys() - counter_qa.keys()),
+            key=counter.get,
+            reverse=True,
+        )
+        return RESERVED_WORDS + vocab
+
+    def _assign_ids(self, data: List[dict]):
+        """wordid assignment + n-gram candidate synthesis
+        (`CoQAPreprocess.py:355-416`)."""
+        if self.train_vocab is None:
+            raise ValueError("train_vocab must be set before ids are assigned")
+        w2id = {w: i for i, w in enumerate(self.train_vocab)}
+        # item word-dicts are per-item COPIES whose token lists are shared
+        # by identity with the deduped annotations (_process_data), so ids
+        # are memoized per unique token list WITHIN this call (the memo
+        # holds the list itself, keeping id() valid). The produced id lists
+        # are shared by reference too: nothing downstream mutates them.
+        memo: Dict[int, tuple] = {}
+
+        def ids_for(ann):
+            words = ann["word"]
+            hit = memo.get(id(words))
+            if hit is not None and hit[0] is words:
+                ann["wordid"] = hit[1]
+                return
+            wordid = token2id_sent(words, w2id)
+            ann["wordid"] = wordid
+            memo[id(words)] = (words, wordid)
+
+        ocr_names, od_names, gram_names = self._names()
+        for d in data:
+            ids_for(d["annotated_question"])
+            d["raw_question_offsets"] = get_raw_context_offsets(
+                d["annotated_question"]["word"], d["question"].lower()
+            )
+            for name in ocr_names:
+                for item in d[name]:
+                    ids_for(item["word"])
+            for name in od_names:
+                for item in d[name]:
+                    ids_for(item["object"])
+            answers = d["orign_answers"]
+            for gram_name in gram_names:
+                src_name = gram_name[: -len(f"_gram{self.n_gram}")]
+                src = d[src_name]
+                n = self.n_gram
+                cands = []
+                gram_keys = self.gram_word_keys
+                if n == 2 and len(src) >= 2:
+                    # the shipped n_gram, specialized: same outputs as the
+                    # general window loop below. All word dicts in a source
+                    # share one schema, so the key set is computed once.
+                    keys = (
+                        tuple(k for k in src[0]["word"] if k in gram_keys)
+                        if gram_keys is not None
+                        else tuple(src[0]["word"])
+                    )
+                    for i in range(len(src) - 1):
+                        a, b = src[i], src[i + 1]
+                        pa, pb = a["pos"], b["pos"]
+                        # bounding merge, reference index quirk: min on
+                        # 0,1,3,4 / max on 2,5,6,7 (merge_quads semantics)
+                        pos = [
+                            pa[0] if pa[0] < pb[0] else pb[0],
+                            pa[1] if pa[1] < pb[1] else pb[1],
+                            pa[2] if pa[2] > pb[2] else pb[2],
+                            pa[3] if pa[3] < pb[3] else pb[3],
+                            pa[4] if pa[4] < pb[4] else pb[4],
+                            pa[5] if pa[5] > pb[5] else pb[5],
+                            pa[6] if pa[6] > pb[6] else pb[6],
+                            pa[7] if pa[7] > pb[7] else pb[7],
+                        ]
+                        w0, w1 = a["word"], b["word"]
+                        cands.append({
+                            "word": {k: w0[k] + w1[k] for k in keys},
+                            "pos": pos,
+                            "original": (
+                                a["original"] + " " + b["original"]
+                            ).lower(),
+                        })
+                elif n != 2:
+                    for i in range(len(src)):
+                        if i + n > len(src):
+                            break
+                        text = " ".join(
+                            t["original"] for t in src[i : i + n]
+                        ).lower()
+                        words = [src[j]["word"] for j in range(i, i + n)]
+                        pos = list(src[i]["pos"])
+                        for j in range(i + 1, i + n):
+                            pos = merge_quads(pos, src[j]["pos"])
+                        word: Dict[str, list] = {}
+                        for k, v in words[0].items():
+                            if gram_keys is not None and k not in gram_keys:
+                                continue
+                            if n == 1:
+                                word[k] = list(v)
+                            else:
+                                acc = v
+                                for w in words[1:]:
+                                    acc = acc + w[k]
+                                word[k] = acc
+                        cands.append(
+                            {"word": word, "pos": pos, "original": text}
+                        )
+                texts = [c["original"] for c in cands]
+                if answers and texts:
+                    anls = metrics.anls_batch(answers, texts)
+                    acc = metrics.acc_batch(answers, texts)
+                else:
+                    anls = np.zeros(len(texts))
+                    acc = np.zeros(len(texts))
+                for c, a, ac in zip(cands, anls, acc):
+                    c["ANLS"] = float(a)
+                    c["ACC"] = float(ac)
+                d[gram_name] = cands
+            # per-candidate scores for the base OCR sources too
+            if answers:
+                for name in ocr_names:
+                    items = d[name]
+                    if not items:
+                        continue
+                    texts = [t["original"].lower() for t in items]
+                    anls = metrics.anls_batch(answers, texts)
+                    acc = metrics.acc_batch(answers, texts)
+                    for t, a, ac in zip(items, anls, acc):
+                        t["ANLS"] = float(a)
+                        t["ACC"] = float(ac)

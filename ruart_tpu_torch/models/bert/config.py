@@ -1,0 +1,60 @@
+"""BERT configuration (compatible with bert_config.json files).
+
+Field names match the Google/HF ``bert_config.json`` schema (reference
+`Models/Bert/modeling.py:67-153`). Copy of ``ruart_tpu/models/bert/config.py``
+without the multi-device mesh, the compute dtype and the int8 mode: the
+port's encoder runs in fp32 only."""
+
+from __future__ import annotations
+
+import dataclasses
+
+ATTENTION_IMPLS = ("auto", "plain")
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    hidden_act: str = "gelu"
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    initializer_range: float = 0.02
+    layer_norm_eps: float = 1e-12
+    # 'auto': the hand-written CUDA attention kernel for CUDA tensors, its
+    # plain PyTorch version for CPU tensors (ops/attention.py). 'plain'
+    # forces the plain version on any device — the comparison arm only.
+    attention_impl: str = "auto"
+
+    def __post_init__(self):
+        if self.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(
+                f"attention_impl {self.attention_impl!r} not in {ATTENTION_IMPLS}"
+            )
+
+    @classmethod
+    def large_uncased(cls, **kw) -> "BertConfig":
+        return cls(
+            hidden_size=1024,
+            num_hidden_layers=24,
+            num_attention_heads=16,
+            intermediate_size=4096,
+            **kw,
+        )
+
+    @classmethod
+    def tiny(cls, vocab_size: int = 256, **kw) -> "BertConfig":
+        """Small config for tests."""
+        return cls(
+            vocab_size=vocab_size,
+            hidden_size=32,
+            num_hidden_layers=3,
+            num_attention_heads=4,
+            intermediate_size=64,
+            **kw,
+        )

@@ -1,0 +1,202 @@
+"""BERT encoder in PyTorch (eval mode) — port of ``ruart_tpu/models/bert/model.py``.
+
+The 2018 BERT architecture the reference vendors
+(`Models/Bert/modeling.py:155-614`), with the JAX package's structure:
+
+* the encoder returns every layer's activations, or — given
+  ``combine_weights`` — their weighted sum accumulated in the layer loop
+  (the fusion model's α-combine, `SDNet.py:573-583`);
+* attention runs through ``ops.attention`` on [B, L, H*dh] projections:
+  the hand-written CUDA kernel for CUDA tensors, its plain version on the
+  CPU (``attention_impl='plain'`` forces the plain version anywhere);
+* subword→word pooling is a batched segment-mean matmul
+  (:func:`subword_to_word_pooling`).
+
+Module and parameter names follow the flax tree (``embeddings``,
+``layer_<i>``, ``attention_self.query`` ...) so ``convert.from_jax_params``
+maps each flax leaf to one entry of the state dict. The encoder runs
+without dropout, as the reference runs BERT in eval mode (`Bert.py:43`).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ruart_tpu_torch.models.bert.config import BertConfig
+from ruart_tpu_torch.ops.attention import attention_rows, attention_rows_plain
+
+ATTN_MASK_BIAS = -10000.0  # reference `modeling.py:583`
+
+
+class BertEmbeddings(nn.Module):
+    def __init__(self, c: BertConfig):
+        super().__init__()
+        self.word_embeddings = nn.Embedding(c.vocab_size, c.hidden_size)
+        self.position_embeddings = nn.Embedding(
+            c.max_position_embeddings, c.hidden_size
+        )
+        self.token_type_embeddings = nn.Embedding(
+            c.type_vocab_size, c.hidden_size
+        )
+        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None):
+        if position_ids is None:
+            position_ids = torch.arange(
+                input_ids.shape[-1], device=input_ids.device
+            )[None, :]
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        x = (
+            self.word_embeddings(input_ids)
+            + self.position_embeddings(position_ids)
+            + self.token_type_embeddings(token_type_ids)
+        )
+        return self.LayerNorm(x)
+
+
+class BertSelfAttention(nn.Module):
+    def __init__(self, c: BertConfig):
+        super().__init__()
+        D = c.hidden_size
+        self.heads = c.num_attention_heads
+        self.impl = c.attention_impl
+        self.query = nn.Linear(D, D)
+        self.key = nn.Linear(D, D)
+        self.value = nn.Linear(D, D)
+
+    def forward(self, hidden, bias):
+        """``bias``: float32 [B, L] key bias or [B, L, L] per-query bias."""
+        q, k, v = self.query(hidden), self.key(hidden), self.value(hidden)
+        attend = attention_rows_plain if self.impl == "plain" else attention_rows
+        return attend(q, k, v, bias, self.heads)
+
+
+class BertLayer(nn.Module):
+    def __init__(self, c: BertConfig):
+        super().__init__()
+        D = c.hidden_size
+        self.attention_self = BertSelfAttention(c)
+        self.attention_output_dense = nn.Linear(D, D)
+        self.attention_output_LayerNorm = nn.LayerNorm(D, eps=c.layer_norm_eps)
+        self.intermediate_dense = nn.Linear(D, c.intermediate_size)
+        self.output_dense = nn.Linear(c.intermediate_size, D)
+        self.output_LayerNorm = nn.LayerNorm(D, eps=c.layer_norm_eps)
+
+    def forward(self, hidden, bias):
+        attn = self.attention_output_dense(self.attention_self(hidden, bias))
+        hidden = self.attention_output_LayerNorm(attn + hidden)
+        inter = F.gelu(self.intermediate_dense(hidden))  # erf form
+        return self.output_LayerNorm(self.output_dense(inter) + hidden)
+
+
+def attention_bias(
+    input_ids: torch.Tensor,
+    attention_mask: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The additive attention bias in the kernel's layout.
+
+    With ``segment_ids`` [B, L] (0 = pad, >= 1 = packed segment): the
+    block-diagonal [B, L, L] form — query t attends only keys of its own
+    segment; cross-segment and pad keys get ``ATTN_MASK_BIAS``, which
+    underflows to an exact zero after the max-subtracted fp32 softmax, so a
+    packed segment's outputs equal the same sequence encoded alone.
+    Otherwise the [B, L] key form from ``attention_mask`` (all ones when
+    None)."""
+    if segment_ids is not None:
+        valid = segment_ids > 0
+        same = (segment_ids[:, :, None] == segment_ids[:, None, :]) & (
+            valid[:, None, :]
+        )
+        return (1.0 - same.float()) * ATTN_MASK_BIAS
+    if attention_mask is None:
+        attention_mask = torch.ones_like(input_ids)
+    return (1.0 - attention_mask.float()) * ATTN_MASK_BIAS
+
+
+class BertModel(nn.Module):
+    """All encoder layers plus the pooled [CLS] vector (reference
+    `modeling.py:534-614` with output_all_encoded_layers=True)."""
+
+    def __init__(self, c: BertConfig):
+        super().__init__()
+        self.config = c
+        self.embeddings = BertEmbeddings(c)
+        for i in range(c.num_hidden_layers):
+            self.add_module(f"layer_{i}", BertLayer(c))
+        self.pooler_dense = nn.Linear(c.hidden_size, c.hidden_size)
+
+    def forward(
+        self,
+        input_ids,
+        attention_mask=None,
+        token_type_ids=None,
+        combine_weights=None,
+        segment_ids=None,
+        position_ids=None,
+    ):
+        """Without ``combine_weights``: (all_layers [n_layers, B, L, D],
+        pooled [B, D]). With ``combine_weights`` [n_layers]: (the weighted
+        layer sum [B, L, D], pooled) — accumulated in the loop, so the
+        stack is never held. See :func:`attention_bias` for the two mask
+        forms."""
+        bias = attention_bias(input_ids, attention_mask, segment_ids)
+        hidden = self.embeddings(input_ids, token_type_ids, position_ids)
+        layers = []
+        acc = None
+        for i in range(self.config.num_hidden_layers):
+            hidden = getattr(self, f"layer_{i}")(hidden, bias)
+            if combine_weights is None:
+                layers.append(hidden)
+            else:
+                term = combine_weights[i] * hidden
+                acc = term if acc is None else acc + term
+        pooled = torch.tanh(self.pooler_dense(hidden[:, 0]))
+        if combine_weights is None:
+            return torch.stack(layers, dim=0), pooled
+        return acc, pooled
+
+
+def subword_to_word_pooling(
+    bert_embedding: torch.Tensor,
+    offsets: torch.Tensor,
+    word_mask: torch.Tensor,
+) -> torch.Tensor:
+    """Mean-pool wordpiece spans into word vectors as one matmul.
+
+    bert_embedding: [..., B, Lb, D] (leading layer axis allowed)
+    offsets:        [B, W, 2] (start, end) piece spans per word
+    word_mask:      [B, W] 1 = real word
+
+    As `Bert.py:111-123`: a span of length <= 1 (empty included) takes the
+    vector at ``start``; longer spans take the mean over [start, end);
+    masked words are zero.
+    """
+    Lb = bert_embedding.shape[-2]
+    st = offsets[..., 0]
+    ed = offsets[..., 1]
+    span = ed - st
+    kk = torch.arange(Lb, device=offsets.device)[None, None, :]
+    in_span = (kk >= st[..., None]) & (kk < ed[..., None])          # [B, W, Lb]
+    single = span <= 1
+    onehot = kk == st.clamp(0, Lb - 1)[..., None]
+    weights = torch.where(
+        single[..., None],
+        onehot.float(),
+        in_span.float() / span.clamp(min=1)[..., None].float(),
+    )
+    weights = weights * word_mask[..., None].float()
+    return torch.matmul(weights, bert_embedding)
+
+
+def linear_combine(all_layers: torch.Tensor, alpha: torch.Tensor,
+                   gamma: torch.Tensor) -> torch.Tensor:
+    """α-softmax layer mix: sum_l softmax(α)_l * gamma * layer_l
+    (`SDNet.py:573-583`). all_layers: [n_layers, ...]; returns [...]."""
+    w = torch.softmax(alpha, dim=0) * gamma.reshape(())
+    return torch.tensordot(w, all_layers, dims=([0], [0]))

@@ -1,0 +1,505 @@
+"""RUArt fusion network in PyTorch (eval mode) — port of
+``ruart_tpu/models/fusion/model.py``.
+
+The same forward as the JAX package on the shipped conf
+(`Models/SDNet.py:253-437` semantics): candidates live in fixed-shape
+[B, N, L] tensors, the three BERT calls (question / OCR / OD) share one
+encoder and fuse into one batched call where their token widths match,
+the 12-layer α-combine happens before subword pooling, and the
+per-candidate stage runs on compacted rows when the collator attached
+``cand_sel``. Batch schema: see the JAX module's docstring.
+
+Conf branches the shipped conf does not take raise NotImplementedError
+naming their conf key (:func:`unported_conf_keys`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ruart_tpu_torch.models.bert.model import BertModel, subword_to_word_pooling
+from ruart_tpu_torch.models.fusion.deep_attention import DeepAttention
+from ruart_tpu_torch.models.fusion.layers import (
+    Attention,
+    GetFinalScores,
+    LinearSelfAttn,
+    weighted_avg,
+)
+from ruart_tpu_torch.models.fusion.rnn import StackedBRNN, gather_last_state
+from ruart_tpu_torch.models.fusion.spec import ModelSpec
+
+POSITION_WIDTH = 8  # normalized box quad per candidate
+
+# batch-global tables and indices of a candidate block; every other key is
+# a per-candidate [B, N, ...] grid
+GLOBAL_KEYS = (
+    "bert_unique", "bert_packed", "bert_packed_seg", "bert_packed_pos",
+    "bert_unpack", "bert_unique_offsets", "cand_sel",
+)
+
+
+def unported_conf_keys(s: ModelSpec) -> List[str]:
+    """The conf branches of ``spec`` this port does not implement."""
+    out = []
+    checks = (
+        (s.img_feature, "img_feature"),
+        (s.use_es and s.es_using_way == "post_process",
+         "ES_using_way post_process"),
+        (s.fixed_answers, "fixed_answers"),
+        (s.position_mod != "qk+", f"position_mod {s.position_mod or '(unset)'}"),
+        (s.pos_att_merge_mod != "cat",
+         f"pos_att_merge_mod {s.pos_att_merge_mod}"),
+        (s.no_deep_attention, "no_DeepAttention"),
+        (s.no_context_self_attention, "no_Context_Self_Attention"),
+        (not (s.pre_align and s.pre_align_before_rnn),
+         "PRE_ALIGN with PRE_ALIGN_befor_rnn unset"),
+        (s.pre_align_after_rnn, "PRE_ALIGN_after_rnn"),
+        (not s.use_bert, "BERT unset"),
+        (s.use_bert and not s.bert_linear_combine,
+         "BERT_LINEAR_COMBINE unset"),
+        ("bert_only" in s.q_embedding + s.ocr_embedding, "bert_only embedding"),
+        (not (s.use_glove or s.use_fasttext), "GLOVE and FastText both unset"),
+    )
+    for hit, key in checks:
+        if hit:
+            out.append(key)
+    return out
+
+
+def _widen_ints(item: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Widen every integer grid (the collator ships int8/int16 grids under
+    `h2d_narrow`) to int64, the index type of torch's gathers. Values are
+    exact."""
+    return {
+        k: (v if v.is_floating_point() else v.long()) for k, v in item.items()
+    }
+
+
+def _flatten_cand(x: torch.Tensor) -> torch.Tensor:
+    """[B, N, ...] -> [B*N, ...]"""
+    return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])
+
+
+class RUArtModel(nn.Module):
+    def __init__(self, spec: ModelSpec):
+        super().__init__()
+        missing = unported_conf_keys(spec)
+        if missing:
+            raise NotImplementedError(
+                "conf branches not ported to ruart_tpu_torch: "
+                + ", ".join(missing)
+            )
+        s = self.spec = spec
+        if s.use_glove:
+            self.glove_embed = nn.Embedding(s.vocab_size, s.glove_dim)
+        if s.use_fasttext:
+            self.fast_embed = nn.Embedding(s.vocab_size, s.fast_dim)
+        if s.use_phoc:
+            self.phoc_embed = nn.Embedding(s.vocab_size, s.phoc_dim)
+        names = s.q_embedding + s.ocr_embedding
+        if "pos" in names:
+            self.pos_embedding = nn.Embedding(s.pos_vocab, s.pos_dim)
+        if "ent" in names:
+            self.ent_embedding = nn.Embedding(s.ent_vocab, s.ent_dim)
+        self.Bert = BertModel(s.bert)
+        self.alphaBERT = nn.Parameter(torch.ones(s.bert.num_hidden_layers))
+        self.gammaBERT = nn.Parameter(torch.ones(1, 1))
+
+        q_word = self._word_dim(s.q_embedding)
+        tok_word = self._word_dim(s.ocr_embedding)
+        self.pre_align = Attention(
+            tok_word, s.prealign_hidden, correlation_func=3,
+            do_similarity=True,
+        )
+        m2o_in = self._emb_width(s.ocr_embedding) + q_word
+        m2o = s.multi2one_output
+        self.multi2one = StackedBRNN(
+            m2o_in, s.multi2one_hidden_size, 1, bidirectional=s.multi2one_bidir
+        )
+        H, layers = s.hidden_size, s.in_rnn_layers
+        self.context_rnn = StackedBRNN(m2o, H, layers)
+        self.ques_rnn = StackedBRNN(self._emb_width(s.q_embedding), H, layers)
+        abstr = 2 * H * layers
+        self.high_lvl_ques_rnn = StackedBRNN(
+            abstr, s.highlvl_hidden_size, s.question_high_lvl_rnn_layers,
+            concat_layers=True,
+        )
+        values = [2 * H] * layers + [s.ques_final_size]
+        self.deep_attn = DeepAttention(
+            m2o + abstr, values, abstr, s.deep_att_hidden_size_per_abstr,
+            s.highlvl_hidden_size,
+        )
+        ctx = 2 * s.highlvl_hidden_size
+        self.highlvl_self_att = Attention(
+            ctx + abstr + sum(values) + m2o,
+            s.deep_att_hidden_size_per_abstr, correlation_func=3,
+        )
+        self.high_lvl_context_rnn = StackedBRNN(
+            2 * ctx, s.highlvl_hidden_size, 1
+        )
+        self.ques_self_attn = Attention(
+            s.ques_final_size, s.query_self_attn_hidden_size,
+            correlation_func=3,
+        )
+        self.od_ocr_attn = Attention(
+            ctx, H, correlation_func=3, do_similarity=True
+        )
+        self.position_attn = Attention(
+            POSITION_WIDTH, H, correlation_func=3, do_similarity=True
+        )
+        self.ques_merger = LinearSelfAttn(s.ques_final_size)
+        self.get_answer = GetFinalScores(
+            s.ocr_final_size, s.ques_final_size, yesno=s.label_yesno,
+            no_answer=s.label_no_answer, use_es=s.use_es,
+        )
+        if not q_word == tok_word == m2o:
+            raise ValueError(
+                f"word-vector widths differ (question {q_word}, candidate "
+                f"{tok_word}, multi2one {m2o}); pre-align and deep attention "
+                "share one projection across both sides"
+            )
+
+    # -- widths ------------------------------------------------------------
+    def _word_dim(self, names) -> int:
+        """Width of the raw word vector (fasttext-if-present priority)."""
+        s = self.spec
+        return s.fast_dim if "fasttext" in names else s.glove_dim
+
+    def _emb_width(self, names) -> int:
+        s = self.spec
+        widths = (
+            ("phoc", s.phoc_dim), ("fasttext", s.fast_dim),
+            ("glove", s.glove_dim), ("bert", s.bert.hidden_size),
+            ("pos", s.pos_dim), ("ent", s.ent_dim),
+        )
+        return sum(w for name, w in widths if name in names)
+
+    # -- random init -------------------------------------------------------
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "RUArtModel":
+        """Random weights drawn from ``generator`` (on the parameters'
+        device): BERT weights N(0, initializer_range); word vectors
+        U(-1, 1); other linears U(±1/sqrt(fan_in)); LSTMs U(±1/sqrt(H));
+        biases 0; LayerNorm 1/0; α, γ and diagonals 1."""
+        std = self.spec.bert.initializer_range
+        for name, mod in self.named_modules():
+            in_bert = name == "Bert" or name.startswith("Bert.")
+            if isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+            elif isinstance(mod, nn.Embedding):
+                if in_bert:
+                    mod.weight.normal_(0.0, std, generator=generator)
+                else:
+                    mod.weight.uniform_(-1.0, 1.0, generator=generator)
+            elif isinstance(mod, nn.Linear):
+                if in_bert:
+                    mod.weight.normal_(0.0, std, generator=generator)
+                else:
+                    bound = 1.0 / math.sqrt(mod.in_features)
+                    mod.weight.uniform_(-bound, bound, generator=generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.LSTM):
+                bound = 1.0 / math.sqrt(mod.hidden_size)
+                for p in mod.parameters():
+                    p.uniform_(-bound, bound, generator=generator)
+        for name, p in self.named_parameters():
+            if name.split(".")[-1] in ("alphaBERT", "gammaBERT", "diagonal"):
+                p.fill_(1.0)
+        return self
+
+    # -- encoder -----------------------------------------------------------
+    @staticmethod
+    def _word_mask(item, initial: str) -> torch.Tensor:
+        """Word mask keyed by the *_emb_initial conf value
+        (`SDNet.py:470-480`)."""
+        key = "fasttext" if initial == "fasttext" else "glove"
+        return (item[key] != 0).float()
+
+    @staticmethod
+    def _mask_by_membership(item, names) -> torch.Tensor:
+        """Word mask with fasttext-if-present priority
+        (`SDNet.py:269-274,507-518`)."""
+        key = "fasttext" if "fasttext" in names else "glove"
+        return (item[key] != 0).float()
+
+    def _combine_weights(self) -> torch.Tensor:
+        return torch.softmax(self.alphaBERT, dim=0) * self.gammaBERT.reshape(())
+
+    def _bert_row_spec(self, item) -> Optional[Tuple[torch.Tensor, ...]]:
+        """(ids, seg, pos) encoder rows of one q/candidate block in segment
+        form, or None when the block needs the in-place path (> 512
+        chunking). Candidate blocks come flattened to [B*N, Lb]."""
+        if "bert_packed" in item:
+            ids = item["bert_packed"]
+            seg, pos = item["bert_packed_seg"], item["bert_packed_pos"]
+        else:
+            ids = item["bert_unique"] if "bert_unique" in item else item["bert"]
+            seg = (ids != 0).long()
+            pos = torch.arange(ids.shape[-1], device=ids.device)[None].expand(
+                ids.shape
+            )
+        if ids.shape[-1] > self.spec.bert.max_position_embeddings:
+            return None
+        return ids, seg, pos
+
+    def _fused_bert(self, q, ocr, od) -> Dict[str, torch.Tensor]:
+        """ONE encoder call over every block whose rows share a token width
+        (`bert_fuse`, default on). q rows join as single-segment rows, so
+        fusion is exact. Blocks whose width matches no other block keep
+        their own call in :meth:`_bert_words`. Returns {block key: encoded
+        rows [R, L, D]} for the fused blocks."""
+        s = self.spec
+
+        def has_ids(item):
+            # h2d_slim drops the dense `bert` grid when a table rides along
+            return ("bert" in item or "bert_packed" in item
+                    or "bert_unique" in item)
+
+        specs = []
+        if "bert" in s.q_embedding and has_ids(q):
+            sp = self._bert_row_spec(q)
+            if sp is not None:
+                specs.append(("q", sp))
+        for key, item in (("ocr", ocr), ("od", od)):
+            if not ("bert" in s.ocr_embedding and has_ids(item)):
+                continue
+            flat = item
+            if "bert_packed" not in item and "bert_unique" not in item:
+                if "cand_sel" in item:
+                    # dense rows are compact-gathered inside
+                    # _encode_candidates
+                    continue
+                flat = {"bert": _flatten_cand(item["bert"])}
+            sp = self._bert_row_spec(flat)
+            if sp is not None:
+                specs.append((key, sp))
+        by_width: Dict[int, list] = {}
+        for key, sp in specs:
+            by_width.setdefault(sp[0].shape[-1], []).append((key, sp))
+        out: Dict[str, torch.Tensor] = {}
+        for grp in by_width.values():
+            if len(grp) < 2:
+                continue
+            ids, seg, pos = (
+                torch.cat([sp[i] for _, sp in grp], dim=0) for i in range(3)
+            )
+            encoded = self.Bert(
+                ids, None, combine_weights=self._combine_weights(),
+                segment_ids=seg, position_ids=pos,
+            )[0]
+            ofs = 0
+            for key, sp in grp:
+                n = sp[0].shape[0]
+                out[key] = encoded[ofs:ofs + n]
+                ofs += n
+        return out
+
+    def _bert_words(self, item, word_mask, encoded=None) -> torch.Tensor:
+        """BERT encode + α-combine + word pooling. ``encoded`` holds rows
+        already encoded by :meth:`_fused_bert`. Sequences longer than
+        ``max_position_embeddings`` are encoded in chunks concatenated on
+        the sequence axis, positions restarting per chunk
+        (`Bert.py:94-101`)."""
+        packed = "bert_packed" in item
+        dedup = "bert_unique" in item
+        if encoded is not None:
+            combined = encoded
+        else:
+            kw = {}
+            mask = None
+            if packed:
+                ids = item["bert_packed"]
+                kw = dict(segment_ids=item["bert_packed_seg"],
+                          position_ids=item["bert_packed_pos"])
+            elif dedup:
+                ids = item["bert_unique"]
+                mask = (ids != 0).long()
+            else:
+                ids, mask = item["bert"], item["bert_mask"]
+            max_len = self.spec.bert.max_position_embeddings
+            width = ids.shape[-1]
+            if packed and width > max_len:
+                raise ValueError("packed rows exceed max_position_embeddings")
+            w = self._combine_weights()
+            chunks = [
+                self.Bert(
+                    ids[:, a:a + max_len],
+                    None if mask is None else mask[:, a:a + max_len],
+                    combine_weights=w, **kw,
+                )[0]
+                for a in range(0, width, max_len)
+            ]
+            combined = chunks[0] if len(chunks) == 1 else torch.cat(chunks, 1)
+        if packed:
+            R, Lp, D = combined.shape
+            flat_tokens = combined.reshape(R * Lp, D)
+        if (packed or dedup) and "bert_unique_offsets" in item:
+            # pool-before-expand: pool on the unique table, then expand the
+            # pooled words to candidates (the word mask is applied after)
+            if packed:
+                unpack = item["bert_unpack"]
+                combined = flat_tokens.index_select(
+                    0, unpack.reshape(-1)
+                ).reshape(*unpack.shape, D)
+            uo = item["bert_unique_offsets"]
+            ones = torch.ones(uo.shape[:2], device=uo.device)
+            pooled_u = subword_to_word_pooling(combined, uo, ones)
+            pooled = pooled_u.index_select(0, item["bert_inverse"])
+            return pooled * word_mask[..., None]
+        if packed:
+            # compose the unpack with the duplicate expansion in one gather
+            idx = item["bert_unpack"].index_select(0, item["bert_inverse"])
+            combined = flat_tokens.index_select(0, idx.reshape(-1)).reshape(
+                *idx.shape, D
+            )
+        elif dedup:
+            combined = combined.index_select(0, item["bert_inverse"])
+        return subword_to_word_pooling(
+            combined, item["bert_offsets"], word_mask
+        )
+
+    def _embed(self, item, names, initial, encoded_bert=None):
+        """Concatenated embedding (`SDNet.py:439-493`). Returns
+        (embedding, raw word vectors for pre-align / deep attention)."""
+        embs = []
+        word_emb = None
+        if "phoc" in names:
+            embs.append(self.phoc_embed(item["phoc"]))
+        if "fasttext" in names:
+            word_emb = self.fast_embed(item["fasttext"])
+            embs.append(word_emb)
+        if "glove" in names:
+            glove = self.glove_embed(item["glove"])
+            if word_emb is None:
+                word_emb = glove
+            embs.append(glove)
+        if "bert" in names:
+            embs.append(self._bert_words(
+                item, self._word_mask(item, initial), encoded_bert
+            ))
+        if "pos" in names:
+            embs.append(self.pos_embedding(item["pos"]))
+        if "ent" in names:
+            embs.append(self.ent_embedding(item["ent"]))
+        return torch.cat(embs, dim=-1), word_emb
+
+    def _encode_candidates(self, item, q_word_emb, q_word_mask,
+                           encoded_bert=None):
+        """Token embed + pre-align + multi2one -> candidate vectors.
+        Returns (cand [B, N, multi2one_out], cand_mask [B, N])."""
+        s = self.spec
+        B, N, L = item["fasttext" if s.use_fasttext else "glove"].shape[:3]
+        flat = {
+            k: (v if k in GLOBAL_KEYS else _flatten_cand(v))
+            for k, v in item.items() if k != "num"
+        }
+        sel = flat.pop("cand_sel", None)
+        row_index = None
+        if sel is not None:
+            # candidate-row compaction: the per-candidate stage runs on the
+            # gathered real rows; pad entries carry the sentinel B*N, which
+            # is clamped in-bounds for every gather and contributes zeros
+            # to the scatter-add
+            valid = sel < B * N
+            sel = sel.clamp(max=B * N - 1)
+            flat = {
+                k: (v if k in GLOBAL_KEYS else v.index_select(0, sel))
+                for k, v in flat.items()
+            }
+            row_index = torch.div(sel, N, rounding_mode="floor")
+        emb, word_emb = self._embed(
+            flat, s.ocr_embedding, s.ocr_emb_initial, encoded_bert
+        )
+        tok_mask = self._mask_by_membership(flat, s.ocr_embedding)
+        if sel is not None:
+            # each gathered row attends to its own question's words
+            attended = self.pre_align(
+                word_emb, q_word_emb, q_word_mask, x2_row_index=row_index
+            )
+        else:
+            attended = self.pre_align(
+                word_emb.reshape(B, N * L, -1), q_word_emb, q_word_mask
+            ).reshape(B * N, L, -1)
+        emb = torch.cat([emb, attended * tok_mask[..., None]], dim=-1)
+        last = gather_last_state(self.multi2one(emb), flat["len"])
+        if sel is not None:
+            last = last * valid[:, None].float()
+            cand = torch.zeros(
+                B * N, last.shape[-1], dtype=last.dtype, device=last.device
+            ).index_add_(0, sel, last)
+        else:
+            cand = last
+        cand = cand.reshape(B, N, -1)
+        cand_mask = (
+            torch.arange(N, device=cand.device)[None, :] < item["num"][:, None]
+        ).float()
+        return cand * cand_mask[..., None], cand_mask
+
+    # -- forward -------------------------------------------------------------
+    def forward(self, q: Dict[str, torch.Tensor], ocr: Dict[str, torch.Tensor],
+                od: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Softmaxed scores [B, n_scores] of one collated batch."""
+        s = self.spec
+        q, ocr, od = (_widen_ints(t) for t in (q, ocr, od))
+        fused = self._fused_bert(q, ocr, od) if s.bert_fuse else {}
+
+        q_input, q_word_emb = self._embed(
+            q, s.q_embedding, s.q_emb_initial, fused.get("q")
+        )
+        q_mask = self._word_mask(q, s.q_emb_initial)
+        ocr_input, ocr_mask = self._encode_candidates(
+            ocr, q_word_emb, q_mask, fused.get("ocr")
+        )
+        od_input, od_mask = self._encode_candidates(
+            od, q_word_emb, q_mask, fused.get("od")
+        )
+
+        _, ocr_layers = self.context_rnn(ocr_input, ln=True, return_list=True)
+        _, q_layers = self.ques_rnn(q_input, ln=True, return_list=True)
+        _, od_layers = self.context_rnn(od_input, ln=True, return_list=True)
+        q_highlvl = self.high_lvl_ques_rnn(torch.cat(q_layers, dim=2), ln=True)
+        q_all = list(q_layers) + [q_highlvl]
+
+        ocr_after, ocr_inter = self.deep_attn(
+            [ocr_input], ocr_layers, [q_word_emb], q_all, ocr_mask, q_mask
+        )
+        od_after, od_inter = self.deep_attn(
+            [od_input], od_layers, [q_word_emb], q_all, od_mask, q_mask
+        )
+
+        ocr_self_in = torch.cat([ocr_after, ocr_inter, ocr_input], dim=2)
+        od_self_in = torch.cat([od_after, od_inter, od_input], dim=2)
+        ocr_self = self.highlvl_self_att(
+            ocr_self_in, ocr_self_in, ocr_mask, x3=ocr_after
+        )
+        od_self = self.highlvl_self_att(
+            od_self_in, od_self_in, od_mask, x3=od_after
+        )
+        ocr_highlvl = self.high_lvl_context_rnn(
+            torch.cat([ocr_after, ocr_self], dim=2), ln=True
+        )
+        od_highlvl = self.high_lvl_context_rnn(
+            torch.cat([od_after, od_self], dim=2), ln=True
+        )
+
+        # position-aware OD -> OCR attention (`SDNet.py:393-403`)
+        x_od_ocr = self.od_ocr_attn(ocr_highlvl, od_highlvl, od_mask) + (
+            self.position_attn(
+                ocr["position"], od["position"], od_mask, x3=od_highlvl
+            )
+        )
+        ocr_final = torch.cat([ocr_highlvl, x_od_ocr], dim=2)
+
+        q_final = self.ques_self_attn(q_highlvl, q_highlvl, q_mask)
+        q_merged = weighted_avg(q_final, self.ques_merger(q_final, q_mask))
+        return self.get_answer(
+            ocr_final, q_merged, ocr_mask,
+            es_len=s.es_ocr_len if s.use_es else None,
+            mask_flag=s.mask_score,
+        )

@@ -1,0 +1,189 @@
+"""Fused multi-head attention for the BERT encoder, in model layout.
+
+Port of ``ruart_tpu/ops/attention.py``'s TPU kernels ``_packed_kernel`` and
+``_grouped_kernel`` (reached through ``grouped_attention``): one CUDA C++
+kernel for sm_90a, ``csrc/attention.cu``, which also states what bounds it
+on an H100 and how its design answers that. The kernel is compiled with
+``nvcc`` at first use into ``ruart_tpu_torch/_build/`` and loaded with
+``ctypes`` (a plain C interface; no PyTorch headers, so the build takes
+seconds).
+
+* :func:`attention_rows_plain` — the plain PyTorch version, the
+  counterpart of ``attention_rows_xla``. The only path for CPU tensors.
+* :func:`attention_rows_cuda` — checks its inputs and launches the kernel
+  on the current stream; counts its launches in
+  ``attention_rows_cuda.launches``.
+* :func:`attention_rows` — dispatch on the tensors' device: CPU tensors
+  take the plain version, CUDA tensors the kernel. No fallback.
+
+q/k/v are [B, L, H*dh]; ``bias`` is a float32 [B, L] additive key bias or
+a [B, L, L] per-query bias (the packed segment mask). The output is
+[B, L, H*dh] in q's dtype (fp32 or bf16; fp32 scores, softmax and sums).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "attention.cu"
+BUILD_DIR = _PKG / "_build"
+LIBRARY = BUILD_DIR / "libruart_attention.so"
+MAX_LEN = 512
+MAX_HEAD_DIM = 128
+
+
+def attention_rows_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    heads: int,
+) -> torch.Tensor:
+    """Model-layout attention in plain PyTorch (``attention_rows_xla``):
+    fp32 scores and softmax, probabilities cast to q's dtype, fp32 sums."""
+    B, L, D = q.shape
+    dh = D // heads
+    qh = q.reshape(B, L, heads, dh).float()
+    kh = k.reshape(B, L, heads, dh).float()
+    vh = v.reshape(B, L, heads, dh).float()
+    s = torch.einsum("blhd,bmhd->bhlm", qh, kh) / torch.tensor(
+        float(dh), dtype=torch.float32
+    ).sqrt()
+    if bias.dim() == 3:
+        s = s + bias[:, None].float()
+    else:
+        s = s + bias[:, None, None, :].float()
+    p = torch.softmax(s, dim=-1).to(q.dtype).float()
+    ctx = torch.einsum("bhlm,bmhd->blhd", p, vh)
+    return ctx.reshape(B, L, D).to(q.dtype)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
+def build_kernel(force: bool = False) -> str:
+    """Compile ``csrc/attention.cu`` for sm_90a into :data:`LIBRARY` unless
+    an up-to-date build exists. Returns the compiler's report (registers,
+    shared memory and spills per kernel from ``-Xptxas -v``), or "" when
+    the existing build was kept. Raises RuntimeError when nvcc fails."""
+    if (
+        not force
+        and LIBRARY.exists()
+        and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime
+    ):
+        return ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-o", tmp, str(SOURCE),
+    ]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, LIBRARY)
+    return proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    build_kernel()
+    lib = ctypes.CDLL(str(LIBRARY))
+    fn = lib.ruart_attention_rows
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(q, k, v, bias, heads):
+    if not (q.is_cuda and k.device == q.device and v.device == q.device
+            and bias.device == q.device):
+        raise ValueError("attention_rows_cuda: q, k, v, bias must share one "
+                         "CUDA device")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"attention_rows_cuda: dtype {q.dtype} not supported")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("attention_rows_cuda: q, k, v dtypes differ")
+    if bias.dtype != torch.float32:
+        raise ValueError(f"attention_rows_cuda: bias must be float32, "
+                         f"got {bias.dtype}")
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"attention_rows_cuda: q/k/v shapes {tuple(q.shape)} "
+                         f"{tuple(k.shape)} {tuple(v.shape)}")
+    B, L, D = q.shape
+    if heads <= 0 or D % heads:
+        raise ValueError(f"attention_rows_cuda: width {D} not divisible by "
+                         f"{heads} heads")
+    dh = D // heads
+    if dh % 8 or dh > MAX_HEAD_DIM:
+        raise ValueError(f"attention_rows_cuda: head width {dh} must be a "
+                         f"multiple of 8 up to {MAX_HEAD_DIM}")
+    if not 1 <= L <= MAX_LEN:
+        raise ValueError(f"attention_rows_cuda: length {L} not in "
+                         f"[1, {MAX_LEN}]")
+    if tuple(bias.shape) not in ((B, L), (B, L, L)):
+        raise ValueError(f"attention_rows_cuda: bias shape "
+                         f"{tuple(bias.shape)} is neither {(B, L)} nor "
+                         f"{(B, L, L)}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
+        if not t.is_contiguous():
+            raise ValueError(f"attention_rows_cuda: {name} is not contiguous")
+    return B, L, dh
+
+
+def attention_rows_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    heads: int,
+) -> torch.Tensor:
+    """Launch the hand-written kernel on CUDA tensors (see module doc)."""
+    B, L, dh = _check(q, k, v, bias, heads)
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.ruart_attention_rows(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), B, L, heads, dh, int(bias.dim() == 3),
+            int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(dh), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
+    attention_rows_cuda.launches += 1
+    return out
+
+
+attention_rows_cuda.launches = 0
+
+
+def attention_rows(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    heads: int,
+) -> torch.Tensor:
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if q.device.type == "cuda":
+        return attention_rows_cuda(q, k, v, bias, heads)
+    if q.device.type == "cpu":
+        return attention_rows_plain(q, k, v, bias, heads)
+    raise ValueError(f"attention_rows: no path for device {q.device}")

@@ -1,0 +1,37 @@
+"""The port stands alone: no module under ruart_tpu_torch/, and not
+chip_smoke.py, imports jax, flax, optax or the JAX package ruart_tpu."""
+
+import ast
+import pathlib
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ruart_tpu")
+SOURCES = sorted((REPO / "ruart_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"
+]
+
+
+def _imported_roots(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module.split(".")[0]
+
+
+def test_scan_sees_the_package():
+    names = {p.relative_to(REPO).as_posix() for p in SOURCES}
+    assert "ruart_tpu_torch/serve.py" in names
+    assert "ruart_tpu_torch/ops/attention.py" in names
+    assert "chip_smoke.py" in names
+
+
+@pytest.mark.parametrize(
+    "path", SOURCES, ids=[p.relative_to(REPO).as_posix() for p in SOURCES]
+)
+def test_no_reference_imports(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
