@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card (an H100: the kernel is built for sm_90a) and exits
+Needs one CUDA card (an H100: the kernels are built for sm_90a) and exits
 non-zero when there is none, or when any phase fails:
 
-1. Build the attention kernel from ``ruart_tpu_torch/csrc/attention.cu``
-   with nvcc and hold it against its plain PyTorch version on the card:
-   both bias forms, fp32 and bf16, at the serving path's shapes (H 12,
+1. Build ``ruart_tpu_torch/csrc/attention.cu`` with nvcc and hold the
+   model-layout kernel (K1/K2) against its plain PyTorch version on the
+   card: both bias forms, fp32 and bf16, at the serving path's shapes (H 12,
    dh 64, L 32 and 50, hundreds of rows), at L 512 and at dh 48, with an
    all-pad row in the segment form. Tolerance: 1e-5 abs in fp32, 2e-2 abs
    in bf16. q and k are drawn on a dyadic grid so every score is exact in
@@ -27,6 +27,36 @@ non-zero when there is none, or when any phase fails:
    run gave most often.
 3. Run the same batches with ``attention_impl='plain'``: scores must agree
    within 1e-4 abs.
+4. ``flash_attention`` (K3, the head-major kernel) against its plain
+   version: fp32 and bf16 inputs (fp32 output) at [B, H, L, D] = (16, 12,
+   128, 64), (3, 2, 16, 8) and (2, 4, 50, 64) with an all-masked key tail;
+   tolerances as phase 1. K3, its plain version and SDPA are timed at
+   (16, 12, 128, 64).
+5. The attention's ``autograd.Function`` (kernel forward, backward through
+   the plain version) against the plain version under autograd at the
+   serving shape (136 packed rows x L 32, 12 heads of 64, segment bias):
+   output and q/k/v gradients within 1e-5 abs in fp32.
+6. Train at full width through ``python -m ruart_tpu_torch.cli.main``'s
+   entry point: the shipped ST-VQA train conf (LOCK_BERT, TUNE_PARTIAL 1000,
+   dropout, Adamax, BCE_D1, clip 10) at batch 16, BERT-base, synthetic
+   msgpack data in a fresh directory under ``_scratch/`` (320 training items with ~4,900
+   words of vocabulary: 20 steps, eval at the start and the end), then
+   ``cli.main_test`` from ``ANLS_best_model.ckpt``. Every loss must be
+   finite, the checkpoints must exist, ``submission.json`` must hold one
+   entry per test item, and the kernel must launch in every step. Prints
+   the median step time (10 steps on one batch, each ended by a
+   synchronize), steps/s of the CLI's loop, eval q/s of the prediction
+   (the CLI's first pass, and a warm second pass of the same evaluator),
+   the peak device memory and profiled steps (device-busy share, top
+   kernels, top host operations).
+7. One train step on the card with the kernel and again with
+   ``attention_impl='plain'``, dropout off, the same weights and batch:
+   loss within 1e-5 relative, updated parameters within 0.05 * lr abs
+   wherever the two arms pin the gradient down to 1% and above 1e-7.
+   Elsewhere Adamax turns rounding noise into a step of up to lr either
+   way: there each arm must stay within lr of the start. The largest
+   gradient difference (over the global gradient norm) is printed beside
+   the plain arm's difference from a second plain step.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.
@@ -36,8 +66,11 @@ import collections
 import json
 import math
 import os
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -46,6 +79,13 @@ H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_FP32_FLOP_PER_S = 67e12   # fp32 outside the tensor cores
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SCORE_TOL = 1e-4
+GRAD_TOL = 1e-5
+SERVE_SHAPE = (136, 32, 12, 64, True)   # packed rows, L, heads, dh, segment
+FLASH_SHAPES = [(16, 12, 128, 64), (3, 2, 16, 8), (2, 4, 50, 64)]
+K2_SHAPE = (64, 32, 16, 48, True)
+N_TRAIN, N_VAL, N_TEST = 320, 32, 40
+UNIQUE_ES = 15   # ES words per training item made unique: ~4,900 words
+LR = 1e-3
 
 
 def log(*args):
@@ -118,7 +158,7 @@ def make_inputs(B, L, H, dh, dtype, bias_2d, seed, pad_rows=True):
 
 def check_kernel(att):
     """Phase 1: the kernel against its plain version. Returns the worst
-    fp32 abs error."""
+    fp32 abs error of the K1 shapes (dh 64) and of the K2 shape (dh 48)."""
     import torch
 
     cases = [  # (rows, L, heads, dh)
@@ -126,6 +166,7 @@ def check_kernel(att):
         (64, 32, 16, 48),
     ]
     worst = {"float32": 0.0, "bfloat16": 0.0}
+    by_kernel = {"K1": 0.0, "K2": 0.0}
     for i, (B, L, H, dh) in enumerate(cases):
         for dtype in (torch.float32, torch.bfloat16):
             for bias_2d in (True, False):
@@ -145,7 +186,11 @@ def check_kernel(att):
                     raise AssertionError("attention kernel disagrees with "
                                          "its plain version")
                 worst[name] = max(worst[name], err)
-    return worst["float32"]
+                if name == "float32":
+                    k = "K1" if dh == 64 else "K2"
+                    by_kernel[k] = max(by_kernel[k], err)
+    log(f"phase 1: worst bf16 error {worst['bfloat16']:.3e}")
+    return by_kernel
 
 
 def time_kernel(att, shape):
@@ -163,11 +208,7 @@ def time_kernel(att, shape):
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask))
     nbytes = 4 * q.numel() * q.element_size() + bias.numel() * 4
-    flops = 4 * B * H * L * L * dh
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOP_PER_S * 1e3
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    return ms, plain_ms, lib_ms, max(t_bytes, t_ops), bound_by
+    return (ms, plain_ms, lib_ms) + bound(nbytes, 4 * B * H * L * L * dh)
 
 
 def build_engine(attention_impl, params=None):
@@ -222,7 +263,6 @@ def where_the_time_goes(engine, reqs):
     part: device-busy share of its wall time and the kernels that take the
     most device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     host = []
     for _ in range(3):
@@ -246,10 +286,169 @@ def where_the_time_goes(engine, reqs):
         f"{sorted(host)[1] * 1e3:.1f} ms, device h2d+forward+fetch "
         f"{sorted(device)[1] * 1e3:.1f} ms for {len(batches)} batches of "
         f"{engine.batch_size}")
+    profile_device(device_pass, "serving pass")
+
+
+def batch_scores(engine, reqs):
+    import torch
+
+    out = []
+    for _, _, (q, ocr, od, _gt, _extra) in engine._collated_batches(reqs):
+        with torch.inference_mode():
+            out.append(engine.model(*(engine.to_device(b) for b in (q, ocr, od))))
+    return out
+
+def bound(nbytes: float, flops: float):
+    """The least time (ms) the card could take: the larger of the bytes
+    over its memory rate and the fp32 operations over its fp32 rate."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_inputs(B, H, L, D, dtype, seed):
+    """Head-major q, k on a 1/16 grid (exact scores), v ~ N(0, 0.25), and a
+    [B, 1, 1, L] key bias: ~20% of keys masked at random, key 0 kept, and
+    the last fifth of the keys masked for every row (an all-masked tail)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def grid():
+        x = torch.randn(B, H, L, D, generator=g, device="cuda") * 0.5
+        return (torch.round(x * 16) / 16).to(dtype)
+
+    q, k = grid(), grid()
+    v = (torch.randn(B, H, L, D, generator=g, device="cuda") * 0.5).to(dtype)
+    keep = torch.rand(B, L, generator=g, device="cuda") > 0.2
+    keep[:, L - max(1, L // 5):] = False
+    keep[:, 0] = True
+    bias = (1.0 - keep.float())[:, None, None, :] * -10000.0
+    return q, k, v, bias.contiguous()
+
+
+def check_flash(att):
+    """Phase 4: K3 against its plain version. Returns the worst fp32 error."""
+    import torch
+
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for i, (B, H, L, D) in enumerate(FLASH_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, bias = flash_inputs(B, H, L, D, dtype, 20 + i)
+            got = att.flash_attention_cuda(q, k, v, bias)
+            torch.cuda.synchronize()
+            want = att.flash_attention_plain(q, k, v, bias)
+            name = str(dtype).split(".")[-1]
+            err = (got - want).abs().max().item()
+            ok = (got.dtype == torch.float32 and math.isfinite(err)
+                  and err <= TOL[name])
+            log(f"flash check [B,H,L,D]=({B},{H},{L},{D}) {name} in, "
+                f"{str(got.dtype).split('.')[-1]} out: max |kernel - plain| = "
+                f"{err:.3e} (tol {TOL[name]:g}){'' if ok else '  FAIL'}")
+            if not ok:
+                raise AssertionError("flash attention kernel disagrees with "
+                                     "its plain version")
+            worst[name] = max(worst[name], err)
+    return worst["float32"]
+
+
+def time_flash(att):
+    """K3, plain and SDPA times (ms) at FLASH_SHAPES[0], plus the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    B, H, L, D = FLASH_SHAPES[0]
+    q, k, v, bias = flash_inputs(B, H, L, D, torch.float32, 30)
+    ms = cuda_ms(lambda: att.flash_attention_cuda(q, k, v, bias))
+    plain_ms = cuda_ms(lambda: att.flash_attention_plain(q, k, v, bias))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+    nbytes = 4 * q.numel() * 4 + bias.numel() * 4
+    return (ms, plain_ms, lib_ms) + bound(nbytes, 4 * B * H * L * L * D)
+
+
+def check_autograd(att):
+    """Phase 5: the autograd.Function against the plain version under
+    autograd at the serving shape. Returns the worst abs error."""
+    import torch
+
+    B, L, H, dh, _ = SERVE_SHAPE
+    q, k, v, bias = make_inputs(B, L, H, dh, torch.float32, True, 40)
+    w = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(41),
+                    device="cuda")
+    worst = 0.0
+    outs, grads = [], []
+    for fn in (att.fused_attention, att.attention_rows_plain):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, bias, H)
+        (out * w).sum().backward()
+        outs.append(out.detach())
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    worst = max([(outs[0] - outs[1]).abs().max().item()] + [
+        (a - b).abs().max().item() for a, b in zip(*grads)])
+    log(f"phase 5: autograd.Function vs plain autograd at {SERVE_SHAPE}: "
+        f"max |diff| over output and q/k/v grads = {worst:.3e} (tol {GRAD_TOL:g})")
+    if not worst <= GRAD_TOL:
+        raise AssertionError("attention autograd.Function disagrees with the "
+                             "plain version's gradient")
+    return worst
+
+
+def _letters(n: int) -> str:
+    out = ""
+    for _ in range(4):
+        n, r = divmod(n, 26)
+        out += chr(97 + r)
+    return "x" + out
+
+
+def write_training_data(root: str) -> str:
+    """Synthetic raw msgpack splits and a train conf (the shipped ST-VQA
+    train conf's keys, batch 16, one epoch of 20 steps) under ``root``.
+    The first UNIQUE_ES ES words of each training item are made unique,
+    so the word vocabulary reaches ~4,900 rows and TUNE_PARTIAL 1000 pins
+    most of them."""
+    import msgpack
+
+    from ruart_tpu_torch.core.presets import STVQA_CONF
+    from ruart_tpu_torch.data.synthetic import make_synthetic_raw_dataset
+
+    for label, n, seed in (("train", N_TRAIN, 0), ("val", N_VAL, 1),
+                           ("test", N_TEST, 2)):
+        raw = make_synthetic_raw_dataset(
+            n, seed=seed, n_ocr_range=(15, 30), n_es=40,
+            with_answers=label != "test",
+        )
+        if label == "train":
+            for i, d in enumerate(raw["data"]):
+                for j, e in enumerate(d["ES_ocr"][:UNIQUE_ES]):
+                    e["word"] = _letters(i * UNIQUE_ES + j)
+        with open(os.path.join(root, f"{label}.msgpack"), "wb") as f:
+            msgpack.pack(raw, f)
+    conf = os.path.join(root, "conf_train")
+    lines = [
+        "Task\ttrain,val,test", "train_FILE\ttrain.msgpack",
+        "val_FILE\tval.msgpack", "test_FILE\ttest.msgpack",
+        "preprocess_ocr_name\tocr_PMTD_ASTER,ES_ocr",
+        "preprocess_od_name\tOD_bottom-up", "batch_size\t16", "epoch\t1",
+        f"FEATURE_FOLDER\t{root}/features",
+    ]
+    with open(conf, "w") as f:
+        f.write("\n".join(lines) + "\n" + STVQA_CONF)
+    return conf
+
+
+def profile_device(fn, label: str):
+    """Run ``fn`` once under torch.profiler: device-busy share of the wall
+    time and the kernels that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        device_pass()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = []  # device-side events only: kernels and copies
@@ -261,22 +460,160 @@ def where_the_time_goes(engine, reqs):
             us = getattr(e, "self_cuda_time_total", 0)
         if us > 0:
             kernels.append((us, e.count, e.key))
+    host = sorted(((e.self_cpu_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")) == "DeviceType.CPU"),
+                  reverse=True)[:8]
     busy = sum(us for us, _, _ in kernels)
-    log(f"profile: device busy {busy / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms "
-        f"wall ({100 * busy / wall_us:.1f}%, profiler on)")
+    log(f"profile {label}: device busy {busy / 1e3:.3f} ms of "
+        f"{wall_us / 1e3:.3f} ms wall ({100 * busy / wall_us:.1f}%, profiler on)")
     for us, count, key in sorted(kernels, reverse=True)[:10]:
         log(f"  {us / 1e3:9.3f} ms {100 * us / busy:5.1f}%  x{count:<5d} "
             f"{key[:90]}")
+    log("  host ops by self CPU time (profiler on):")
+    for us, count, key in host:
+        log(f"  {us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
 
 
-def batch_scores(engine, reqs):
+def run_training(att, conf: str):
+    """Phase 6, train half: the CLI's entry point on ``conf``. Every train
+    step is wrapped to record its K1 launches and its (device) loss."""
+    import ruart_tpu_torch.train.trainer as trainer_mod
+    from ruart_tpu_torch.cli import main as cli_main
+
+    steps = []
+    factory = trainer_mod.make_train_step
+
+    def recording_factory(*args, **kwargs):
+        step = factory(*args, **kwargs)
+
+        def recorded(state, q, ocr, od, gt):
+            before = att.attention_rows_cuda.launches
+            state, loss = step(state, q, ocr, od, gt)
+            steps.append((att.attention_rows_cuda.launches - before, loss))
+            return state, loss
+
+        return recorded
+
+    trainer_mod.make_train_step = recording_factory
+    try:
+        trainer = cli_main.main(["--conf_file", conf])
+    finally:
+        trainer_mod.make_train_step = factory
+    return trainer, steps
+
+
+def train_batch_on_device(trainer):
+    """One collated training batch of the trainer's data, on the card."""
+    from ruart_tpu_torch.data.pipeline import device_put_batch, host_batch
+
+    data = trainer._dataset(trainer._load_split("train"), "train")
+    batch = trainer.collator([data[i] for i in range(trainer.cfg.batch_size)])
+    host = host_batch(batch, trainer.spec, trainer._h2d_slim,
+                      pin=trainer.device.type == "cuda")
+    return device_put_batch(host, trainer.device)[:4]
+
+
+def time_train_steps(trainer, batch, n: int = 10):
+    """Median ms of ``n`` train steps on one batch, each ended by a
+    synchronize (after 3 warm steps)."""
     import torch
 
-    out = []
-    for _, _, (q, ocr, od, _gt, _extra) in engine._collated_batches(reqs):
-        with torch.inference_mode():
-            out.append(engine.model(*(engine.to_device(b) for b in (q, ocr, od))))
-    return out
+    times = []
+    for i in range(n + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.state, _ = trainer.train_step(trainer.state, *batch)
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def compare_plain_step(att, trainer, batch):
+    """Phase 7: one train step with the kernel and one with
+    attention_impl='plain' from the same weights and batch, dropout off."""
+    import dataclasses
+
+    import torch
+
+    from ruart_tpu_torch.core.config import Config
+    from ruart_tpu_torch.models.fusion.model import RUArtModel
+    from ruart_tpu_torch.models.fusion.spec import ModelSpec
+    from ruart_tpu_torch.train.loss import make_loss_fn
+    from ruart_tpu_torch.train.optim import Optimizer, make_row_pinner
+    from ruart_tpu_torch.train.train_step import init_train_state, make_train_step
+
+    opt = dict(trainer.opt)
+    for key in ("DROPOUT", "dropout_emb"):
+        opt.pop(key, None)
+    cfg = Config(opt)
+    weights = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    out = {}
+    for arm, impl in (("kernel", "auto"), ("plain", "plain"), ("plain again", "plain")):
+        spec = ModelSpec.from_config(
+            cfg, dataclasses.replace(trainer.spec.bert, attention_impl=impl))
+        with trainer.device:
+            model = RUArtModel(spec)
+        model.load_state_dict(weights)
+        tx = Optimizer("#", LR, 10.0, model, spec, True)
+        step = make_train_step(make_loss_fn("BCE_D1"),
+                               make_row_pinner(model, spec, int(opt["tune_partial"])))
+        state = init_train_state(model, tx, 0)
+        before = att.attention_rows_cuda.launches
+        state, loss = step(state, *batch)
+        launched = att.attention_rows_cuda.launches - before
+        grads = {n: (p.grad.detach().clone() if p.grad is not None else None)
+                 for n, p in model.named_parameters()}
+        params = {n: p.detach().clone() for n, p in model.named_parameters()}
+        out[arm] = (loss.item(), params, grads, launched)
+        del model, state, tx
+    (loss_k, p_k, g_k, n_k), (loss_p, p_p, g_p, n_p) = out["kernel"], out["plain"]
+    g_again = out["plain again"][2]
+    if n_k < trainer.spec.bert.num_hidden_layers or n_p != 0:
+        raise AssertionError(f"phase 7: kernel launches {n_k} (kernel arm), "
+                             f"{n_p} (plain arm)")
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    names = [n for n in p_k if g_k[n] is not None]
+    for n in p_k:
+        if (g_k[n] is None) != (g_p[n] is None):
+            raise AssertionError(f"phase 7: {n} has a gradient in one arm only")
+    # gradients against the size of the whole gradient (a tensor whose own
+    # gradient is ~0, like a bias in front of a softmax, holds only noise);
+    # reported beside the plain arm's difference from itself, the floor
+    # that cuDNN's backward leaves
+    g_norm = torch.linalg.vector_norm(torch.stack([g_p[n].norm() for n in names]))
+
+    def grad_diff(other):
+        diffs = {n: ((other[n] - g_p[n]).norm() / g_norm).item() for n in names}
+        name = max(diffs, key=diffs.get)
+        return diffs[name], name
+
+    worst_grad, grad_name = grad_diff(g_k)
+    floor_grad, _ = grad_diff(g_again)
+    worst, worst_name = 0.0, ""
+    for name in names:
+        gk, gp, pk = g_k[name], g_p[name], p_k[name]
+        # an element whose gradient the two arms do not pin down to 1% (or
+        # that is ~0) moves by +-lr in a direction rounding decides
+        settled = (gp.abs() > 100 * (gk - gp).abs()) & (gp.abs() > 1e-7)
+        diff = (pk - p_p[name]).abs()
+        if settled.any() and diff[settled].max().item() > worst:
+            worst, worst_name = diff[settled].max().item(), name
+    for name, pk in p_k.items():
+        for arm in (pk, p_p[name]):
+            if (arm - weights[name]).abs().max().item() > LR * (1 + 1e-4):
+                raise AssertionError(f"phase 7: {name} moved more than lr")
+    log(f"phase 7: loss kernel {loss_k:.7f} plain {loss_p:.7f} (rel diff "
+        f"{rel:.2e}, tol 1e-5); worst |grad kernel - grad plain| over the "
+        f"global gradient norm {worst_grad:.2e} ({grad_name}; plain against "
+        f"itself {floor_grad:.2e}); max |param kernel - param plain| where "
+        f"the gradient is settled {worst:.3e} ({worst_name}, tol {0.05 * LR:g}); "
+        f"every element within lr of its start")
+    if not (rel <= 1e-5 and worst <= 0.05 * LR):
+        raise AssertionError("phase 7: the kernel's train step and the plain "
+                             "version's disagree")
+    return rel, worst
 
 
 def main() -> int:
@@ -296,6 +633,14 @@ def main() -> int:
     from ruart_tpu_torch.models.bert.model import BertSelfAttention
     from ruart_tpu_torch.ops import attention as att
 
+    def reset_counts():
+        att.attention_rows_cuda.launches = 0
+        att.flash_attention_cuda.launches = 0
+
+    def counts():
+        return {"K1": att.attention_rows_cuda.launches,
+                "K3": att.flash_attention_cuda.launches}
+
     t_start = time.time()
     card = card_line()
     log(f"card: {card} ({torch.cuda.get_device_name(0)}, torch "
@@ -308,10 +653,10 @@ def main() -> int:
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             log("  ptxas:", line.strip())
-    max_err = check_kernel(att)
-    log(f"phase 1 ok: worst fp32 error {max_err:.3e}")
+    errs = check_kernel(att)
+    log(f"phase 1 ok: worst fp32 error K1 {errs['K1']:.3e}, K2 {errs['K2']:.3e}")
 
-    # -- phase 2: serve at full width ---------------------------------------
+    # -- phase 2: serve at full width (main path 1) ---------------------------
     t0 = time.time()
     engine, params = build_engine("auto")
     reqs = requests()
@@ -325,14 +670,14 @@ def main() -> int:
     hooks = [m.register_forward_pre_hook(record)
              for m in engine.model.modules() if isinstance(m, BertSelfAttention)]
     log(f"phase 2: engine built in {time.time() - t0:.1f} s")
-    att.attention_rows_cuda.launches = 0
+    reset_counts()
     results = engine.predict(reqs)
     torch.cuda.synchronize()
-    launches = att.attention_rows_cuda.launches
+    serve_counts = counts()
     for h in hooks:
         h.remove()
     n_batches = -(-N_REQUESTS // engine.batch_size)
-    log(f"phase 2: {len(results)} answers, {launches} kernel launches over "
+    log(f"phase 2: {len(results)} answers, launches {serve_counts} over "
         f"{n_batches} batches; attention shapes (rows, L, heads, dh, "
         f"segment) x calls: {dict(shapes)}")
     if len(results) != N_REQUESTS or not all(
@@ -340,9 +685,9 @@ def main() -> int:
         and math.isfinite(r["score"]) for r in results
     ):
         raise AssertionError(f"bad serving results: {results}")
-    if launches < 12 * n_batches:
-        raise AssertionError(f"attention kernel launched {launches} times, "
-                             f"expected >= {12 * n_batches}")
+    if serve_counts["K1"] < 12 * n_batches:
+        raise AssertionError(f"attention kernel launched {serve_counts['K1']} "
+                             f"times, expected >= {12 * n_batches}")
     t0 = time.time()
     again = engine.predict(reqs)
     torch.cuda.synchronize()
@@ -354,9 +699,12 @@ def main() -> int:
     where_the_time_goes(engine, reqs)
 
     shape = shapes.most_common(1)[0][0]
-    ms, plain_ms, lib_ms, bound_ms, bound_by = time_kernel(att, shape)
-    log(f"attention at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    k1 = time_kernel(att, shape)
+    log(f"K1 at {shape}: kernel {k1[0]:.4f} ms, plain {k1[1]:.4f} ms, "
+        f"sdpa {k1[2]:.4f} ms, bound {k1[3]:.4f} ms ({k1[4]})")
+    k2 = time_kernel(att, K2_SHAPE)
+    log(f"K2 at {K2_SHAPE}: kernel {k2[0]:.4f} ms, plain {k2[1]:.4f} ms, "
+        f"sdpa {k2[2]:.4f} ms, bound {k2[3]:.4f} ms ({k2[4]})")
 
     # -- phase 3: the same batches through the plain version -----------------
     plain, _ = build_engine("plain", params)
@@ -373,22 +721,135 @@ def main() -> int:
         f"score shape {tuple(got[0].shape)}")
     if not diff <= SCORE_TOL:
         raise AssertionError("kernel path and plain path disagree")
+    del engine, plain
 
+    # -- phase 4: K3 against its plain version --------------------------------
+    k3_err = check_flash(att)
+    k3 = time_flash(att)
+    log(f"phase 4 ok: K3 worst fp32 error {k3_err:.3e}; at "
+        f"{FLASH_SHAPES[0]} kernel {k3[0]:.4f} ms, plain {k3[1]:.4f} ms, "
+        f"sdpa {k3[2]:.4f} ms, bound {k3[3]:.4f} ms ({k3[4]})")
+
+    # -- phase 5: K1's autograd.Function -------------------------------------
+    check_autograd(att)
+
+    # -- phase 6: train and predict through the CLIs (main paths 2 and 3) -----
+    # the run's data and run folders live in the checkout's ignored scratch
+    os.makedirs(os.path.join(HERE, "_scratch"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_", dir=os.path.join(HERE, "_scratch"))
+    try:
+        t0 = time.time()
+        conf = write_training_data(root)
+        log(f"phase 6: wrote {N_TRAIN}/{N_VAL}/{N_TEST} synthetic items in "
+            f"{time.time() - t0:.1f} s")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.time()
+        trainer, steps = run_training(att, conf)
+        torch.cuda.synchronize()
+        train_counts = counts()
+        train_wall = time.time() - t0
+        losses = [float(loss) for _, loss in steps]
+        per_step = [n for n, _ in steps]
+        folder = os.path.join(root, "conf~", "run_1")
+        layers = trainer.spec.bert.num_hidden_layers
+        log(f"phase 6: CLI train {train_wall:.1f} s wall, {trainer.updates} "
+            f"steps, launches {train_counts}, K1 launches per step "
+            f"{sorted(set(per_step))}, losses {[round(x, 5) for x in losses]}")
+        if not (len(steps) == trainer.updates == N_TRAIN // trainer.cfg.batch_size):
+            raise AssertionError(f"expected {N_TRAIN // 16} steps, ran {len(steps)}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError("a training loss is not finite")
+        if min(per_step) < layers:
+            raise AssertionError("a train step ran without the attention kernel")
+        for name in ("ANLS_best_model.ckpt", "ACC_best_model.ckpt", "conf_copy"):
+            if not os.path.isfile(os.path.join(folder, name)):
+                raise AssertionError(f"the run folder lacks {name}")
+        steps_per_s = trainer.updates / trainer.train_seconds
+        peak_train = torch.cuda.max_memory_allocated()
+        batch = train_batch_on_device(trainer)
+        step_ms, step_times = time_train_steps(trainer, batch)
+        log(f"phase 6: train step median {step_ms:.2f} ms (synchronized, "
+            f"{[round(t, 2) for t in step_times]}); CLI loop {steps_per_s:.3f} "
+            f"steps/s over {trainer.train_seconds:.2f} s; peak device memory "
+            f"{peak_train / 2**30:.3f} GiB")
+        profile_device(lambda: [trainer.train_step(trainer.state, *batch)
+                                for _ in range(3)], "3 train steps")
+        for e in trainer.eval_history:
+            log(f"  eval {e['mode']} batch {e['batch']}: {e['n']} items in "
+                f"{e['seconds']:.3f} s ({e['n'] / e['seconds']:.2f} q/s), "
+                f"ANLS {e['ANLS']:.4f} ACC {e['ACC']:.4f}")
+
+        # -- phase 7: one step with the kernel and with the plain version -----
+        compare_plain_step(att, trainer, batch)
+        del trainer, batch
+
+        from ruart_tpu_torch.cli import main_test as cli_main_test
+
+        predict = os.path.join(root, "conf_predict")
+        with open(conf) as f, open(predict, "w") as g:
+            g.write("RESUME\nMODEL_PATH\tconf~/run_1/ANLS_best_model.ckpt\n"
+                    + f.read())
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        predictor = cli_main_test.main(["--conf_file", predict])
+        torch.cuda.synchronize()
+        predict_counts = counts()
+        with open(os.path.join(folder, "submission.json")) as f:
+            sub = json.load(f)
+        last = predictor.eval_history[-1]
+        first_qps = last["n"] / last["seconds"]
+        # the CLI's pass is the model's first on new shapes; time a second,
+        # warm pass of the same evaluator over the same test split
+        from ruart_tpu_torch.eval.evaluator import evaluate
+
+        test_data = predictor._dataset(predictor._load_split("test"), "test")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate(predictor.eval_step, test_data, predictor.cfg, predictor.spec,
+                 predictor.device, predictor.collator)
+        eval_qps = len(test_data) / (time.perf_counter() - t0)
+        log(f"phase 6: CLI predict {len(sub)} answers, launches "
+            f"{predict_counts}, eval {last['n']} items in {last['seconds']:.3f} s "
+            f"({first_qps:.2f} q/s, first pass), warm pass {eval_qps:.2f} q/s, "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        if len(sub) != N_TEST or not all(isinstance(r["answer"], str) for r in sub):
+            raise AssertionError(f"submission.json holds {len(sub)} entries, "
+                                 f"expected {N_TEST}")
+        if predict_counts["K1"] < layers * -(-N_TEST // 16):
+            raise AssertionError("prediction ran without the attention kernel")
+        log(f"phase 6 ok: median step {step_ms:.2f} ms, {steps_per_s:.3f} steps/s, "
+            f"eval {eval_qps:.2f} q/s, peak train memory {peak_train} bytes")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    main_path = {k: serve_counts[k] + train_counts[k] + predict_counts[k]
+                 for k in serve_counts}
+    log(f"launches on the main paths: serve {serve_counts}, train "
+        f"{train_counts}, predict {predict_counts}")
     log(f"total {time.time() - t_start:.1f} s")
     log(card)
-    log(json.dumps({"kernels": [{
-        "name": "attention_rows",
-        "route": "cuda",
-        "source": "ruart_tpu_torch/csrc/attention.cu",
-        "replaces": "ruart_tpu/ops/attention.py:100",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": lib_ms,
-    }]}))
+    source = "ruart_tpu_torch/csrc/attention.cu"
+
+    def entry(name, replaces, launches, err, timing):
+        ms, plain_ms, lib_ms, bound_ms, bound_by = timing
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms}
+
+    log(json.dumps({"kernels": [
+        entry("attention_rows (K1, _packed_kernel)",
+              "ruart_tpu/ops/attention.py:100", main_path["K1"], errs["K1"], k1),
+        # K2's function runs in the same kernel; no main-path call has a
+        # head width that takes it at BERT-base (dh 64)
+        entry("attention_rows (K2, _grouped_kernel)",
+              "ruart_tpu/ops/attention.py:54", 0, errs["K2"], k2),
+        entry("flash_attention (K3, _mha_kernel)",
+              "ruart_tpu/ops/attention.py:36", main_path["K3"], k3_err, k3),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

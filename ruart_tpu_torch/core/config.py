@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 from typing import Any, Dict, Iterator, Optional
 
 log = logging.getLogger(__name__)
@@ -55,6 +56,13 @@ def read_conf_lines(lines) -> Dict[str, Any]:
             else:
                 opt[key] = _coerce(value)
     return opt
+
+
+def read_conf_file(path: str) -> Dict[str, Any]:
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"The argument file does not exist: {path}")
+    with open(path, encoding="utf-8") as f:
+        return read_conf_lines(f)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -338,3 +346,11 @@ class Config:
             ent_vocab=self._ent_vocab,
             num_scores=num_scores,
         )
+
+    @classmethod
+    def from_file(cls, path: str, **overrides: Any) -> "Config":
+        opt = read_conf_file(path)
+        opt.update(overrides)
+        opt.setdefault("confFile", path)
+        opt.setdefault("datadir", os.path.dirname(path))
+        return cls(opt)

@@ -13,6 +13,7 @@ OCR_WORD_ID = 3
 OD_WORD_ID = 4
 
 RESERVED_WORDS = ["<PAD>", "<UNK>", "<Q>", "<OCR>", "<OD>"]
+RESERVED_CHARS = ["<PAD>", "<UNK>", "<STA>", "<END>"]
 
 # Sentinel answer strings (`Models/SDNetTrainer.py:418-426`).
 ANSWER_NOREAD = "answering does not require reading text in the image"

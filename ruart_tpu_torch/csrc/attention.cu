@@ -1,23 +1,28 @@
-// Fused multi-head attention in model layout for the BERT encoder (sm_90a).
+// Fused multi-head attention for the BERT encoder (sm_90a).
 //
 // Replaces the TPU kernels of ruart_tpu/ops/attention.py:
 //   * _packed_kernel  (reached through grouped_attention(packed=True), the
-//     path of every BERT layer), and
+//     path of every BERT layer),
 //   * _grouped_kernel (the same function for head widths the 128-lane
-//     bundles reject).
+//     bundles reject), and
+//   * _mha_kernel     (reached through flash_attention: head-major
+//     [B, H, L, D] inputs, a [B, 1, 1, L] key bias, fp32 output).
 // Per row b and head h it computes
-//   out[b, :, h] = softmax(q_h k_h^T / sqrt(dh) + bias) v_h
-// on q/k/v laid out [B, L, H*dh] (no head transpose), with a [B, L] key
-// bias or a [B, L, L] per-query (segment) bias, fp32 scores, a
-// max-subtracted fp32 softmax, fp32 accumulation and the output in q's type
-// (fp32 or bf16).
+//   out[b, h] = softmax(q_h k_h^T / sqrt(dh) + bias) v_h
+// with fp32 scores, a max-subtracted fp32 softmax and fp32 accumulation.
+// The kernel reads q/k/v through element strides for batch, position and
+// head, so one body serves both layouts without a copy: the model layout
+// [B, L, H*dh] (K1/K2, output in q's type) and the head-major layout
+// [B, H, L, D] (K3, output always fp32). The bias is a [B, L] key bias or a
+// [B, L, L] per-query (segment) bias.
 //
 // What bounds it on an H100: at the serving path's shapes (L = 32 packed
 // rows or <= 50 question rows, dh = 64) one (row, head) does 4*L*L*dh flops
-// on 4*L*dh elements plus its bias, about 8 flop/byte in fp32 — far below
+// on 4*L*dh elements plus its bias, about 8 flop/byte in fp32 -- far below
 // the card's ~20 (fp32 CUDA cores) to ~295 (bf16 tensor cores) flop/byte
 // balance point, so it is bound by device memory: the least time is
-// (q + k + v + out + bias bytes) / 3.35 TB/s.
+// (q + k + v + out + bias bytes) / 3.35 TB/s. K3 at L 128 does ~32
+// flop/byte in fp32 and is bound by the fp32 CUDA-core rate there.
 //
 // Design: one block of 4 warps per (row, head, tile of 16 queries). The
 // block stages its query tile and then tiles of 32 keys and values in
@@ -66,14 +71,20 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Element strides of one [batch, position, head] layout; the innermost
+// (head-width) axis is contiguous.
+struct Layout {
+  long long batch, pos, head;
+};
+
 // DCH = ceil(dh / 32): output columns per lane; shared rows hold 32*DCH
-// values (zero-padded past dh).
-template <typename T, int DCH, bool kBias2d>
+// values (zero-padded past dh). T is the input type, TO the output type.
+template <typename T, typename TO, int DCH, bool kBias2d>
 __global__ void __launch_bounds__(kWarps * 32)
-    attention_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
-                          const float* __restrict__ bias, T* __restrict__ out,
-                          int L, int H, int dh, int n_qtiles, float scale) {
+    attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ bias,
+                     TO* __restrict__ out, Layout in, Layout o, int L, int dh,
+                     int n_qtiles, float scale) {
   constexpr int kWidth = 32 * DCH;
   // Q/K row pitch of kWidth + 4 floats: float4 reads by 8 lanes of a phase
   // land on 8 distinct 4-bank groups (no bank conflicts)
@@ -88,12 +99,12 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const long long pitch = (long long)H * dh;  // elements per position
-  const long long base = (long long)b * L * pitch + (long long)h * dh;
+  const long long base = (long long)b * in.batch + (long long)h * in.head;
+  const long long obase = (long long)b * o.batch + (long long)h * o.head;
 
   for (int i = tid; i < kQueryTile * kWidth; i += kWarps * 32) {
     const int r = i / kWidth, d = i % kWidth, pos = q0 + r;
-    qs[r][d] = (pos < L && d < dh) ? to_f32(q[base + pos * pitch + d]) : 0.f;
+    qs[r][d] = (pos < L && d < dh) ? to_f32(q[base + pos * in.pos + d]) : 0.f;
   }
 
   float m[kQueriesPerWarp], l[kQueriesPerWarp], acc[kQueriesPerWarp][DCH];
@@ -109,10 +120,10 @@ __global__ void __launch_bounds__(kWarps * 32)
     __syncthreads();  // the previous tile is consumed (and Q is staged)
     for (int i = tid; i < kKeyTile * kWidth; i += kWarps * 32) {
       const int r = i / kWidth, d = i % kWidth, pos = k0 + r;
-      const bool in = pos < L && d < dh;
-      const long long off = base + pos * pitch + d;
-      ks[r][d] = in ? to_f32(k[off]) : 0.f;
-      vs[r][d] = in ? to_f32(v[off]) : 0.f;
+      const bool inside = pos < L && d < dh;
+      const long long off = base + pos * in.pos + d;
+      ks[r][d] = inside ? to_f32(k[off]) : 0.f;
+      vs[r][d] = inside ? to_f32(v[off]) : 0.f;
     }
     __syncthreads();
     const int key = k0 + lane;
@@ -164,65 +175,34 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
       for (int c = 0; c < DCH; ++c) {
         const int d = lane + 32 * c;
-        if (d < dh) store(&out[base + qpos * pitch + d], acc[i][c] / l[i]);
+        if (d < dh) store(&out[obase + qpos * o.pos + d], acc[i][c] / l[i]);
       }
     }
   }
 }
 
-template <typename T, int DCH>
+template <typename T, typename TO, int DCH>
 void launch_dch(const void* q, const void* k, const void* v, const float* bias,
-                void* out, int bias_2d, dim3 grid, int L, int H, int dh,
-                int n_qtiles, float scale, cudaStream_t stream) {
+                void* out, int bias_2d, dim3 grid, Layout in, Layout o, int L,
+                int dh, int n_qtiles, float scale, cudaStream_t stream) {
   const dim3 block(kWarps * 32);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  TO* ot = static_cast<TO*>(out);
   if (bias_2d) {
-    attention_rows_kernel<T, DCH, true><<<grid, block, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), bias, static_cast<T*>(out), L, H, dh,
-        n_qtiles, scale);
+    attention_kernel<T, TO, DCH, true><<<grid, block, 0, stream>>>(
+        qt, kt, vt, bias, ot, in, o, L, dh, n_qtiles, scale);
   } else {
-    attention_rows_kernel<T, DCH, false><<<grid, block, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), bias, static_cast<T*>(out), L, H, dh,
-        n_qtiles, scale);
+    attention_kernel<T, TO, DCH, false><<<grid, block, 0, stream>>>(
+        qt, kt, vt, bias, ot, in, o, L, dh, n_qtiles, scale);
   }
 }
 
-template <typename T>
-void launch_type(const void* q, const void* k, const void* v,
-                 const float* bias, void* out, int bias_2d, dim3 grid, int L,
-                 int H, int dh, int n_qtiles, float scale,
-                 cudaStream_t stream) {
-  switch ((dh + 31) / 32) {
-    case 1:
-      launch_dch<T, 1>(q, k, v, bias, out, bias_2d, grid, L, H, dh, n_qtiles,
-                       scale, stream);
-      break;
-    case 2:
-      launch_dch<T, 2>(q, k, v, bias, out, bias_2d, grid, L, H, dh, n_qtiles,
-                       scale, stream);
-      break;
-    case 3:
-      launch_dch<T, 3>(q, k, v, bias, out, bias_2d, grid, L, H, dh, n_qtiles,
-                       scale, stream);
-      break;
-    default:
-      launch_dch<T, 4>(q, k, v, bias, out, bias_2d, grid, L, H, dh, n_qtiles,
-                       scale, stream);
-      break;
-  }
-}
-
-}  // namespace
-
-// q, k, v, out: [B, L, H*dh] contiguous, fp32 (bf16 == 0) or bf16
-// (bf16 == 1); bias: fp32 [B, L] (bias_2d == 0) or [B, L, L]
-// (bias_2d == 1). The caller checks shapes, types and 1 <= L, dh % 8 == 0,
-// dh <= 128. Launches on `stream` and returns cudaGetLastError().
-extern "C" int ruart_attention_rows(const void* q, const void* k,
-                                    const void* v, const void* bias, void* out,
-                                    int B, int L, int H, int dh, int bias_2d,
-                                    int bf16, float scale, void* stream) {
+template <typename T, typename TO>
+int launch(const void* q, const void* k, const void* v, const void* bias,
+           void* out, int B, int H, int L, int dh, int bias_2d, Layout in,
+           Layout o, float scale, void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 || H > 65535 || dh <= 0 || dh > 128 ||
       dh % 8 != 0)
     return (int)cudaErrorInvalidValue;
@@ -231,12 +211,64 @@ extern "C" int ruart_attention_rows(const void* q, const void* k,
   const dim3 grid((unsigned)(B * n_qtiles), (unsigned)H);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bias_f = static_cast<const float*>(bias);
-  if (bf16) {
-    launch_type<__nv_bfloat16>(q, k, v, bias_f, out, bias_2d, grid, L, H, dh,
-                               n_qtiles, scale, s);
-  } else {
-    launch_type<float>(q, k, v, bias_f, out, bias_2d, grid, L, H, dh, n_qtiles,
-                       scale, s);
+  switch ((dh + 31) / 32) {
+    case 1:
+      launch_dch<T, TO, 1>(q, k, v, bias_f, out, bias_2d, grid, in, o, L, dh,
+                           n_qtiles, scale, s);
+      break;
+    case 2:
+      launch_dch<T, TO, 2>(q, k, v, bias_f, out, bias_2d, grid, in, o, L, dh,
+                           n_qtiles, scale, s);
+      break;
+    case 3:
+      launch_dch<T, TO, 3>(q, k, v, bias_f, out, bias_2d, grid, in, o, L, dh,
+                           n_qtiles, scale, s);
+      break;
+    default:
+      launch_dch<T, TO, 4>(q, k, v, bias_f, out, bias_2d, grid, in, o, L, dh,
+                           n_qtiles, scale, s);
+      break;
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K1/K2. q, k, v, out: [B, L, H*dh] contiguous, fp32 (bf16 == 0) or bf16
+// (bf16 == 1), out in q's type; bias: fp32 [B, L] (bias_2d == 0) or
+// [B, L, L] (bias_2d == 1). The caller checks shapes, types and 1 <= L,
+// dh % 8 == 0, dh <= 128. Launches on `stream` and returns
+// cudaGetLastError().
+extern "C" int ruart_attention_rows(const void* q, const void* k,
+                                    const void* v, const void* bias, void* out,
+                                    int B, int L, int H, int dh, int bias_2d,
+                                    int bf16, float scale, void* stream) {
+  const long long pitch = (long long)H * dh;
+  const Layout rows{(long long)L * pitch, pitch, (long long)dh};
+  if (bf16)
+    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, bias, out, B, H, L,
+                                                dh, bias_2d, rows, rows, scale,
+                                                stream);
+  return launch<float, float>(q, k, v, bias, out, B, H, L, dh, bias_2d, rows,
+                              rows, scale, stream);
+}
+
+// K3. q, k, v: [B, H, L, D] in fp32 (bf16 == 0) or bf16 (bf16 == 1), read
+// through the element strides (stride_b, stride_h, stride_l) they share,
+// the D axis contiguous; bias: fp32 [B, L] (the [B, 1, 1, L] key bias);
+// out: contiguous fp32 [B, H, L, D] whatever the input type. The caller
+// checks shapes, types and strides. Returns cudaGetLastError().
+extern "C" int ruart_flash_attention(const void* q, const void* k,
+                                     const void* v, const void* bias,
+                                     void* out, int B, int H, int L, int D,
+                                     long long stride_b, long long stride_h,
+                                     long long stride_l, int bf16, float scale,
+                                     void* stream) {
+  const Layout in{stride_b, stride_l, stride_h};
+  const Layout o{(long long)H * L * D, (long long)D, (long long)L * D};
+  if (bf16)
+    return launch<__nv_bfloat16, float>(q, k, v, bias, out, B, H, L, D, 0, in,
+                                        o, scale, stream);
+  return launch<float, float>(q, k, v, bias, out, B, H, L, D, 0, in, o, scale,
+                              stream);
 }

@@ -1,8 +1,9 @@
-"""Host featurization: raw datum -> preprocessed datum with vocabulary ids.
+"""Offline preprocessing and host featurization: raw msgpack ->
+preprocessed msgpack + meta, and raw datum -> preprocessed datum.
 
-The serving part of ``ruart_tpu/data/preprocess.py`` (itself a rebuild of
-the reference pipeline, `Utils/CoQAPreprocess.py:93-477`): the same raw
-schema in, the same preprocessed schema out.
+Copy of ``ruart_tpu/data/preprocess.py`` (itself a rebuild of the reference
+pipeline, `Utils/CoQAPreprocess.py:93-477`) with the same file names and
+contents, so a feature folder written by one package is read by the other:
 
 raw datum in  : question / question_id / file_path / image_width/height /
                 answers / <ocr_name>: [{word, pos(8 px quad), cnt?}] /
@@ -12,25 +13,32 @@ preprocessed  : annotated_question {word, pos_id, ent_id, wordid, ...},
                 boxes, per-candidate ANLS/ACC, synthesized n-gram
                 candidates with merged boxes, vocabulary ids
 
-Left out of this copy: msgpack and all file IO (the offline artifacts),
-PHOC embeddings (built by native C++) and spaCy — tokenization and tagging
-always use the rule-based featurizer (``ruart_tpu_torch.text.featurizer``),
-so the tags equal those of a spaCy-free JAX run.
+
+Left out of this copy: PHOC embeddings (built by native C++; the ``PHOC``
+conf key raises) and spaCy — tokenization and tagging always use the
+rule-based featurizer (``ruart_tpu_torch.text.featurizer``), so the tags
+equal those of a spaCy-free JAX run. As in the JAX package, deterministic
+hashed word vectors stand in when no GloVe/fastText files are configured.
 """
 
 from __future__ import annotations
 
+import hashlib
+import logging
 import os
 from collections import Counter
 from itertools import chain
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import msgpack
 import numpy as np
 
 from ruart_tpu_torch.core.config import Config
-from ruart_tpu_torch.core.constants import RESERVED_WORDS
+from ruart_tpu_torch.core.constants import RESERVED_CHARS, RESERVED_WORDS
 from ruart_tpu_torch.eval import metrics
 from ruart_tpu_torch.text import featurizer
+
+log = logging.getLogger(__name__)
 
 
 def annotate(text: str) -> Dict[str, List]:
@@ -76,6 +84,16 @@ def get_raw_context_offsets(words: Sequence[str], raw_text: str) -> List[tuple]:
         out.append((p, p + len(token)))
         p += len(token)
     return out
+
+
+def char2id_sent(
+    words: Sequence[str], c2id: Dict[str, int], unk_id: int = 1
+) -> List[List[int]]:
+    """Per-word char ids with <STA>/<END> brackets (`CoQAUtils.py:127-132`)."""
+    sta, end = c2id["<STA>"], c2id["<END>"]
+    return [
+        [sta] + [c2id.get(c, unk_id) for c in w] + [end] for w in words
+    ]
 
 
 def token2id_sent(
@@ -205,21 +223,147 @@ def merge_quads(a: Sequence[float], b: Sequence[float]) -> List[float]:
     return out
 
 
+def hashed_vector(word: str, dim: int) -> np.ndarray:
+    """Deterministic pseudo word vector (fallback when no embedding files
+    are available in the environment)."""
+    seed = int.from_bytes(hashlib.sha256(word.encode()).digest()[:4], "little")
+    rng = np.random.RandomState(seed)
+    return rng.uniform(-1, 1, dim).astype(np.float32)
+
+
+def build_glove_embedding(
+    embed_file: Optional[str], vocab: Sequence[str], dim: int
+) -> np.ndarray:
+    """GloVe-text-file embedding matrix; unmatched rows uniform(-1,1), row 0
+    zero (`CoQAUtils.py:34-50`). Hashed fallback without a file."""
+    rng = np.random.RandomState(0)
+    emb = rng.uniform(-1, 1, (len(vocab), dim)).astype(np.float32)
+    if embed_file and os.path.isfile(embed_file):
+        w2id = {w: i for i, w in enumerate(vocab)}
+        with open(embed_file, encoding="utf8") as f:
+            for line in f:
+                elems = line.split()
+                token = featurizer.normalize_text("".join(elems[0:-dim]))
+                if token in w2id:
+                    emb[w2id[token]] = [float(v) for v in elems[-dim:]]
+    else:
+        for i, w in enumerate(vocab):
+            emb[i] = hashed_vector(w, dim)
+    emb[0] = 0.0
+    return emb
+
+
+def build_fasttext_embedding(
+    model_file: Optional[str], vocab: Sequence[str], dim: int
+) -> np.ndarray:
+    """fastText embedding matrix (`CoQAUtils.py:52-66`); hashed fallback when
+    the fasttext lib/model is unavailable."""
+    emb = np.zeros((len(vocab), dim), dtype=np.float32)
+    ft = None
+    if model_file and os.path.isfile(model_file):
+        try:
+            from fasttext import load_model
+
+            ft = load_model(model_file)
+        except (ImportError, ValueError, OSError):
+            log.warning("fasttext unavailable; using hashed fallback vectors")
+    for i, w in enumerate(vocab):
+        emb[i] = ft.get_word_vector(w) if ft is not None else hashed_vector(w, dim)
+    emb[0] = 0.0
+    return emb
+
+
 class Preprocessor:
-    """The in-memory featurization steps of the offline pipeline: annotate
-    (:meth:`_process_data`), build the word vocabulary
-    (:meth:`_build_vocab`) and assign ids + synthesize n-gram candidates
-    (:meth:`_assign_ids`)."""
+    """Drives the offline pipeline for all configured splits (reference
+    `CoQAPreprocess.__init__:46-91`), and the in-memory featurization steps
+    serving uses: annotate (:meth:`_process_data`), build the word
+    vocabulary (:meth:`_build_vocab`) and assign ids + synthesize n-gram
+    candidates (:meth:`_assign_ids`)."""
 
     def __init__(self, cfg: Config):
         self.cfg = cfg
         self.opt = cfg.opt
+        self.feature_folder = self.opt.get("FEATURE_FOLDER", ".")
         self.n_gram = int(self.opt.get("n_gram", 2))
+        self.build_test_vocab = "BuildTestVocabulary" in self.opt
+        labels = str(self.opt.get("Task", "test")).split(",")
+        if "train" in labels:
+            labels.remove("train")
+            labels = ["train"] + labels
+        self.dataset_labels = labels
         self.train_vocab: Optional[List[str]] = None
+        self.train_char_vocab: Optional[List[str]] = None
         # None = full reference schema in gram candidates; a key tuple
         # restricts the synthesized window word-dicts (serving sets this —
-        # the runtime dataset reads only word/wordid/pos_id/ent_id)
+        # the runtime dataset reads only word/wordid/pos_id/ent_id[/charid])
         self.gram_word_keys: Optional[Tuple[str, ...]] = None
+
+    # -- public API ------------------------------------------------------
+    def ensure_preprocessed(self):
+        missing = [
+            l for l in self.dataset_labels if not os.path.exists(self._out_path(l))
+        ]
+        if not missing:
+            return
+        os.makedirs(self.feature_folder, exist_ok=True)
+        if self.build_test_vocab:
+            self.preprocess_merged()
+        else:
+            for label in self.dataset_labels:
+                self.preprocess(label)
+
+    def load_data(self):
+        """meta msgpack -> (vocab, char_vocab, {name: np matrix}); also
+        fills vocab_size/char_vocab_size into the conf
+        (`CoQAPreprocess.py:481-502`)."""
+        meta_path = os.path.join(self.feature_folder, "train_meta.msgpack")
+        with open(meta_path, "rb") as f:
+            meta = msgpack.unpack(f, raw=False, strict_map_key=False)
+        emb = {}
+        for key in ("glove_embedding", "fast_embedding", "phoc_embedding"):
+            if key in meta:
+                emb[key] = np.asarray(meta[key], dtype=np.float32)
+                self.opt["vocab_size"] = emb[key].shape[0]
+        self.opt["char_vocab_size"] = len(meta["char_vocab"])
+        if "vocab_size" in self.opt:
+            self.cfg.opt["vocab_size"] = self.opt["vocab_size"]
+        return meta["vocab"], meta["char_vocab"], emb
+
+    # -- file layout -----------------------------------------------------
+    def _out_path(self, label: str) -> str:
+        return os.path.join(self.feature_folder, f"{label}-preprocessed.msgpack")
+
+    def _raw_path(self, label: str) -> str:
+        return os.path.join(self.opt["datadir"], self.opt[f"{label}_FILE"])
+
+    def _load_raw(self, label: str):
+        with open(self._raw_path(label), "rb") as f:
+            return msgpack.unpack(f, raw=False, strict_map_key=False)
+
+    def preprocess_merged(self):
+        """BuildTestVocabulary mode: process all splits together so every
+        split shares the train vocabulary (`CoQAPreprocess.py:105-123,
+        456-466`)."""
+        datasets = [self._load_raw(l) for l in self.dataset_labels]
+        lens = [len(d["data"]) for d in datasets]
+        merged = [d for ds in datasets for d in ds["data"]]
+        data = self._process_data(merged)
+        self._build_and_save_meta(data)
+        self._assign_ids(data)
+        start = 0
+        for label, n in zip(self.dataset_labels, lens):
+            with open(self._out_path(label), "wb") as f:
+                msgpack.pack({"data": data[start: start + n]}, f)
+            start += n
+
+    def preprocess(self, label: str):
+        dataset = self._load_raw(label)
+        data = self._process_data(dataset["data"])
+        if label == "train":
+            self._build_and_save_meta(data)
+        self._assign_ids(data)
+        with open(self._out_path(label), "wb") as f:
+            msgpack.pack({"data": data}, f)
 
     def _names(self):
         ocr_names = str(
@@ -307,19 +451,8 @@ class Preprocessor:
 
     def _build_vocab(self, data: List[dict]) -> List[str]:
         """Frequency-sorted vocab: answer/question tokens first, then the
-        rest, reserved ids 0..4 (`CoQAPreprocess.py:503-537`)."""
-        if "GLOVE" in self.opt and "FastText" not in self.opt:
-            glove_file = os.path.join(
-                str(self.opt.get("datadir", "")),
-                str(self.opt.get("INIT_WORD_EMBEDDING_FILE", "")),
-            )
-            if os.path.isfile(glove_file):
-                # the JAX package filters the vocabulary by this file; the
-                # port reads no files, so refuse rather than differ
-                raise NotImplementedError(
-                    "vocabulary filtering by INIT_WORD_EMBEDDING_FILE "
-                    "(GLOVE without FastText)"
-                )
+        rest, reserved ids 0..4 (`CoQAPreprocess.py:503-537`). GLOVE mode
+        filters by the embedding file's vocabulary when available."""
         ocr_names, od_names, _ = self._names()
         counter_qa: Counter = Counter()
         counter_c: Counter = Counter()
@@ -334,15 +467,70 @@ class Preprocessor:
                 for item in d[name]:
                     counter_c.update(item["object"]["word"])
         counter = counter_c + counter_qa
-        vocab = sorted(counter_qa, key=counter_qa.get, reverse=True)
+
+        allowed = None
+        if "GLOVE" in self.opt and "FastText" not in self.opt:
+            glove_file = os.path.join(
+                str(self.opt.get("datadir", "")),
+                str(self.opt.get("INIT_WORD_EMBEDDING_FILE", "")),
+            )
+            if os.path.isfile(glove_file):
+                allowed = set()
+                with open(glove_file, encoding="utf-8") as f:
+                    for line in f:
+                        allowed.add(featurizer.normalize_text(
+                            "".join(line.split()[0:-300])
+                        ))
+
+        def keep(t):
+            return allowed is None or t in allowed
+
+        vocab = sorted(
+            [t for t in counter_qa if keep(t)], key=counter_qa.get, reverse=True
+        )
         # lexicographic pre-sort: a set's iteration order is hash-randomized
         # per process, so equal-count ties need a deterministic order
         vocab += sorted(
-            sorted(counter_c.keys() - counter_qa.keys()),
+            sorted(t for t in counter_c.keys() - counter_qa.keys() if keep(t)),
             key=counter.get,
             reverse=True,
         )
         return RESERVED_WORDS + vocab
+
+    def _build_char_vocab(self, vocab: Sequence[str]) -> List[str]:
+        counter = Counter(c for w in vocab for c in w)
+        chars = [c for c, cnt in counter.items() if cnt > 3]
+        return RESERVED_CHARS + chars
+
+    def _build_and_save_meta(self, data: List[dict]):
+        if "PHOC" in self.opt:
+            raise NotImplementedError(
+                "conf key PHOC: PHOC embeddings are not ported"
+            )
+        self.train_vocab = self._build_vocab(data)
+        self.train_char_vocab = self._build_char_vocab(self.train_vocab)
+        meta: Dict[str, Any] = {
+            "vocab": self.train_vocab,
+            "char_vocab": self.train_char_vocab,
+        }
+        if "FastText" in self.opt:
+            model_file = os.path.join(
+                self.opt["datadir"], str(self.opt.get("fasttext_model", ""))
+            )
+            meta["fast_embedding"] = build_fasttext_embedding(
+                model_file, self.train_vocab, int(self.opt.get("fast_dim", 300))
+            ).tolist()
+        if "GLOVE" in self.opt:
+            glove_file = os.path.join(
+                self.opt["datadir"],
+                str(self.opt.get("INIT_WORD_EMBEDDING_FILE", "")),
+            )
+            meta["glove_embedding"] = build_glove_embedding(
+                glove_file, self.train_vocab, int(self.opt.get("glove_dim", 300))
+            ).tolist()
+        path = os.path.join(self.feature_folder, "train_meta.msgpack")
+        with open(path, "wb") as f:
+            msgpack.pack(meta, f)
 
     def _assign_ids(self, data: List[dict]):
         """wordid assignment + n-gram candidate synthesis
@@ -350,6 +538,11 @@ class Preprocessor:
         if self.train_vocab is None:
             raise ValueError("train_vocab must be set before ids are assigned")
         w2id = {w: i for i, w in enumerate(self.train_vocab)}
+        c2id = (
+            {c: i for i, c in enumerate(self.train_char_vocab)}
+            if self.train_char_vocab
+            else None
+        )
         # item word-dicts are per-item COPIES whose token lists are shared
         # by identity with the deduped annotations (_process_data), so ids
         # are memoized per unique token list WITHIN this call (the memo
@@ -362,10 +555,15 @@ class Preprocessor:
             hit = memo.get(id(words))
             if hit is not None and hit[0] is words:
                 ann["wordid"] = hit[1]
+                if c2id is not None:
+                    ann["charid"] = hit[2]
                 return
             wordid = token2id_sent(words, w2id)
+            charid = char2id_sent(words, c2id) if c2id is not None else None
             ann["wordid"] = wordid
-            memo[id(words)] = (words, wordid)
+            if charid is not None:
+                ann["charid"] = charid
+            memo[id(words)] = (words, wordid, charid)
 
         ocr_names, od_names, gram_names = self._names()
         for d in data:

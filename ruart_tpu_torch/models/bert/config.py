@@ -8,6 +8,7 @@ port's encoder runs in fp32 only."""
 from __future__ import annotations
 
 import dataclasses
+import json
 
 ATTENTION_IMPLS = ("auto", "plain")
 
@@ -58,3 +59,13 @@ class BertConfig:
             intermediate_size=64,
             **kw,
         )
+
+    @classmethod
+    def from_json(cls, path: str, **overrides) -> "BertConfig":
+        """A ``bert_config.json`` (unknown keys ignored) plus overrides."""
+        with open(path) as f:
+            raw = json.load(f)
+        fields = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in raw.items() if k in fields}
+        kw.update(overrides)
+        return cls(**kw)

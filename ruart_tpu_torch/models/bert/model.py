@@ -1,4 +1,4 @@
-"""BERT encoder in PyTorch (eval mode) — port of ``ruart_tpu/models/bert/model.py``.
+"""BERT encoder in PyTorch — port of ``ruart_tpu/models/bert/model.py``.
 
 The 2018 BERT architecture the reference vendors
 (`Models/Bert/modeling.py:155-614`), with the JAX package's structure:
@@ -6,16 +6,20 @@ The 2018 BERT architecture the reference vendors
 * the encoder returns every layer's activations, or — given
   ``combine_weights`` — their weighted sum accumulated in the layer loop
   (the fusion model's α-combine, `SDNet.py:573-583`);
-* attention runs through ``ops.attention`` on [B, L, H*dh] projections:
-  the hand-written CUDA kernel for CUDA tensors, its plain version on the
-  CPU (``attention_impl='plain'`` forces the plain version anywhere);
+* attention runs through ``ops.attention.fused_attention`` on [B, L, H*dh]
+  projections: the hand-written CUDA kernel for CUDA tensors, its plain
+  version on the CPU, with a backward that recomputes through the plain
+  version (``attention_impl='plain'`` forces the plain version anywhere);
+* ``stop_layer_gradients`` (LOCK_BERT) cuts every layer's output from the
+  graph while the combine weights stay in it;
 * subword→word pooling is a batched segment-mean matmul
   (:func:`subword_to_word_pooling`).
 
 Module and parameter names follow the flax tree (``embeddings``,
 ``layer_<i>``, ``attention_self.query`` ...) so ``convert.from_jax_params``
 maps each flax leaf to one entry of the state dict. The encoder runs
-without dropout, as the reference runs BERT in eval mode (`Bert.py:43`).
+without dropout in training too, as the reference runs BERT in eval
+mode (`Bert.py:43`).
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ruart_tpu_torch.models.bert.config import BertConfig
-from ruart_tpu_torch.ops.attention import attention_rows, attention_rows_plain
+from ruart_tpu_torch.ops.attention import attention_rows_plain, fused_attention
 
 ATTN_MASK_BIAS = -10000.0  # reference `modeling.py:583`
 
@@ -72,7 +76,7 @@ class BertSelfAttention(nn.Module):
     def forward(self, hidden, bias):
         """``bias``: float32 [B, L] key bias or [B, L, L] per-query bias."""
         q, k, v = self.query(hidden), self.key(hidden), self.value(hidden)
-        attend = attention_rows_plain if self.impl == "plain" else attention_rows
+        attend = attention_rows_plain if self.impl == "plain" else fused_attention
         return attend(q, k, v, bias, self.heads)
 
 
@@ -139,24 +143,32 @@ class BertModel(nn.Module):
         combine_weights=None,
         segment_ids=None,
         position_ids=None,
+        stop_layer_gradients: bool = False,
     ):
         """Without ``combine_weights``: (all_layers [n_layers, B, L, D],
         pooled [B, D]). With ``combine_weights`` [n_layers]: (the weighted
         layer sum [B, L, D], pooled) — accumulated in the loop, so the
         stack is never held. See :func:`attention_bias` for the two mask
-        forms."""
+        forms. ``stop_layer_gradients`` runs the encoder without a graph
+        (the JAX package's ``stop_gradient`` on every layer output), so no
+        gradient reaches its parameters while ``combine_weights`` still
+        gets one."""
         bias = attention_bias(input_ids, attention_mask, segment_ids)
-        hidden = self.embeddings(input_ids, token_type_ids, position_ids)
+        encoder_grad = torch.is_grad_enabled() and not stop_layer_gradients
+        with torch.set_grad_enabled(encoder_grad):
+            hidden = self.embeddings(input_ids, token_type_ids, position_ids)
         layers = []
         acc = None
         for i in range(self.config.num_hidden_layers):
-            hidden = getattr(self, f"layer_{i}")(hidden, bias)
+            with torch.set_grad_enabled(encoder_grad):
+                hidden = getattr(self, f"layer_{i}")(hidden, bias)
             if combine_weights is None:
                 layers.append(hidden)
             else:
                 term = combine_weights[i] * hidden
                 acc = term if acc is None else acc + term
-        pooled = torch.tanh(self.pooler_dense(hidden[:, 0]))
+        with torch.set_grad_enabled(encoder_grad):
+            pooled = torch.tanh(self.pooler_dense(hidden[:, 0]))
         if combine_weights is None:
             return torch.stack(layers, dim=0), pooled
         return acc, pooled

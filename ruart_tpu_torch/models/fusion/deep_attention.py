@@ -22,7 +22,8 @@ from ruart_tpu_torch.models.fusion.rnn import StackedBRNN
 class DeepAttention(nn.Module):
     def __init__(self, att_size: int, value_sizes: Sequence[int],
                  abstr_size: int, deep_att_hidden_size_per_abstr: int,
-                 highlvl_hidden_size: int, correlation_func: int = 3):
+                 highlvl_hidden_size: int, correlation_func: int = 3,
+                 dropout_p: float = 0.0, variational: bool = True):
         """``att_size``: width of the concatenated attention keys (equal on
         both sides); ``value_sizes``: width of each x2 abstraction layer;
         ``abstr_size``: width of the concatenated x1 abstraction layers."""
@@ -31,9 +32,11 @@ class DeepAttention(nn.Module):
         for i in range(self.levels):
             self.add_module(f"int_attn_{i}", Attention(
                 att_size, deep_att_hidden_size_per_abstr, correlation_func,
+                dropout_p=dropout_p, variational=variational,
             ))
         self.rnn = StackedBRNN(
             abstr_size + sum(value_sizes), highlvl_hidden_size, num_layers=1,
+            dropout_p=dropout_p, variational=variational,
         )
 
     def forward(self, x1_word, x1_abstr, x2_word, x2_abstr, x1_mask, x2_mask):

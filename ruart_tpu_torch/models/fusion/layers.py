@@ -1,9 +1,12 @@
-"""Fusion-network building blocks in PyTorch (eval mode).
+"""Fusion-network building blocks in PyTorch.
 
 Port of ``ruart_tpu/models/fusion/layers.py`` (from-scratch equivalents of
-the reference's `Models/Layers.py`). Dropout is not ported: this package
-serves only, and every dropout is the identity in eval mode.
+the reference's `Models/Layers.py`).
 
+* :func:`seq_dropout` / :class:`Dropper` — variational (time-shared) and
+  plain dropout (`Layers.py:23-39`). Masks come from the ``torch.Generator``
+  the root model hands every :class:`Dropper` (``RUArtModel.seed_dropout``);
+  every dropout is the identity under ``model.eval()``.
 * :class:`AttentionScore` / :class:`Attention` — the 5 correlation kernels
   and the masked softmax-attend (`Layers.py:182-295`), including the
   ``x2_row_index`` gathered-row form candidate compaction uses.
@@ -24,6 +27,39 @@ import torch
 from torch import nn
 
 NEG_INF = -1e30  # finite -inf stand-in: keeps softmax NaN-free on all-masked rows
+
+
+def seq_dropout(x: torch.Tensor, p: float, variational: bool,
+                generator: torch.Generator) -> torch.Tensor:
+    """Dropout with keep probability 1 - p, scaled by 1 / (1 - p). A 3-D
+    input under ``variational`` keeps one [B, 1, D] mask shared across the
+    time axis (`Layers.py:23-30`); anything else gets a mask per element."""
+    shape = (x.shape[0], 1, x.shape[2]) if variational and x.dim() == 3 else x.shape
+    keep = torch.empty(shape, dtype=x.dtype, device=x.device)
+    keep.bernoulli_(1.0 - p, generator=generator)
+    return x * keep / (1.0 - p)
+
+
+class Dropper(nn.Module):
+    """Dropout at one site of the JAX forward (``dropout_fn``): the identity
+    in eval mode or at p 0, :func:`seq_dropout` in training mode. Holds no
+    parameters; ``generator`` is set by ``RUArtModel.seed_dropout``."""
+
+    def __init__(self, p: float = 0.0, variational: bool = True):
+        super().__init__()
+        self.p = p
+        self.variational = variational
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError(
+                "dropout in training mode needs a generator: call "
+                "RUArtModel.seed_dropout(seed) first"
+            )
+        return seq_dropout(x, self.p, self.variational, self.generator)
 
 
 def masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor],
@@ -50,8 +86,10 @@ class AttentionScore(nn.Module):
     """
 
     def __init__(self, in_size: int, hidden_size: int,
-                 correlation_func: int = 1, do_similarity: bool = False):
+                 correlation_func: int = 1, do_similarity: bool = False,
+                 dropout_p: float = 0.0, variational: bool = True):
         super().__init__()
+        self.drop = Dropper(dropout_p, variational)
         self.cf = correlation_func
         self.hidden_size = hidden_size
         self.do_similarity = do_similarity
@@ -67,6 +105,7 @@ class AttentionScore(nn.Module):
         [R, Lx, D] gathered rows, x2 stays [B, Ly, D] and is projected once
         at batch granularity before the per-row gather."""
         cf = self.cf
+        x1, x2 = self.drop(x1), self.drop(x2)
         if cf in (2, 3):
             x1r, x2r = self.linear(x1), self.linear(x2)
             if cf == 3:
@@ -94,10 +133,12 @@ class Attention(nn.Module):
     """Masked attend: softmax(score(x1, x2)) @ x3 (`Layers.py:247-295`)."""
 
     def __init__(self, in_size: int, hidden_size: int,
-                 correlation_func: int = 1, do_similarity: bool = False):
+                 correlation_func: int = 1, do_similarity: bool = False,
+                 dropout_p: float = 0.0, variational: bool = True):
         super().__init__()
         self.scoring = AttentionScore(
-            in_size, hidden_size, correlation_func, do_similarity
+            in_size, hidden_size, correlation_func, do_similarity,
+            dropout_p, variational,
         )
 
     def forward(self, x1, x2, x2_mask, x3=None, x2_row_index=None):
@@ -117,22 +158,27 @@ class Attention(nn.Module):
 class LinearSelfAttn(nn.Module):
     """softmax(Wx) summary weights over a sequence (`Layers.py:320-341`)."""
 
-    def __init__(self, in_size: int):
+    def __init__(self, in_size: int, dropout_p: float = 0.0,
+                 variational: bool = True):
         super().__init__()
+        self.drop = Dropper(dropout_p, variational)
         self.linear = nn.Linear(in_size, 1)
 
     def forward(self, x, x_mask):
-        return masked_softmax(self.linear(x)[..., 0], x_mask)
+        return masked_softmax(self.linear(self.drop(x))[..., 0], x_mask)
 
 
 class BilinearSeqAttn(nn.Module):
     """o_i = x_i' W y scores over a sequence (`Layers.py:435-468`)."""
 
-    def __init__(self, x_size: int, y_size: int):
+    def __init__(self, x_size: int, y_size: int, dropout_p: float = 0.0,
+                 variational: bool = True):
         super().__init__()
+        self.drop = Dropper(dropout_p, variational)
         self.linear = nn.Linear(y_size, x_size)
 
     def forward(self, x, y, x_mask, mask_flag: bool = True):
+        x, y = self.drop(x), self.drop(y)
         xWy = torch.bmm(x, self.linear(y)[:, :, None])[..., 0]
         if mask_flag:
             xWy = torch.where(
@@ -149,12 +195,14 @@ class GetFinalScores(nn.Module):
     vector is softmaxed (`Layers.py:418`)."""
 
     def __init__(self, x_size: int, h_size: int, yesno: bool = False,
-                 no_answer: bool = False, use_es: bool = False):
+                 no_answer: bool = False, use_es: bool = False,
+                 dropout_p: float = 0.0, variational: bool = True):
         super().__init__()
         self.yesno, self.no_answer, self.use_es = yesno, no_answer, use_es
-        self.attn = BilinearSeqAttn(x_size, h_size)
+        self.drop = Dropper(dropout_p, variational)
+        self.attn = BilinearSeqAttn(x_size, h_size, dropout_p, variational)
         if use_es:
-            self.attn2 = BilinearSeqAttn(x_size, h_size)
+            self.attn2 = BilinearSeqAttn(x_size, h_size, dropout_p, variational)
         heads = (("no", "yes", "no_read") if yesno else ()) + (
             ("noanswer",) if no_answer else ()
         )
@@ -177,15 +225,17 @@ class GetFinalScores(nn.Module):
         else:
             score_s = self.attn(x, h0, x_mask, mask_flag)
         if self.yesno:
+            h0d = self.drop(h0)
             score_s = torch.cat(
-                [self._single(x, h0, x_mask, "no_read"),
-                 self._single(x, h0, x_mask, "yes"),
-                 self._single(x, h0, x_mask, "no"), score_s],
+                [self._single(x, h0d, x_mask, "no_read"),
+                 self._single(x, h0d, x_mask, "yes"),
+                 self._single(x, h0d, x_mask, "no"), score_s],
                 dim=-1,
             )
         if self.no_answer:
             score_s = torch.cat(
-                [score_s, self._single(x, h0, x_mask, "noanswer")], dim=-1
+                [score_s, self._single(x, self.drop(h0), x_mask, "noanswer")],
+                dim=-1,
             )
         return torch.softmax(score_s, dim=-1)
 

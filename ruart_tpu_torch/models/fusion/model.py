@@ -1,4 +1,4 @@
-"""RUArt fusion network in PyTorch (eval mode) — port of
+"""RUArt fusion network in PyTorch — port of
 ``ruart_tpu/models/fusion/model.py``.
 
 The same forward as the JAX package on the shipped conf
@@ -8,6 +8,12 @@ encoder and fuse into one batched call where their token widths match,
 the 12-layer α-combine happens before subword pooling, and the
 per-candidate stage runs on compacted rows when the collator attached
 ``cand_sel``. Batch schema: see the JAX module's docstring.
+
+Training mode (``model.train()``) runs dropout at every site the JAX
+forward has (``DROPOUT`` in the fusion layers and LSTM stacks,
+``dropout_emb`` on the word and BERT embeddings), with masks drawn from the
+generator :meth:`RUArtModel.seed_dropout` installs; under ``LOCK_BERT`` the
+encoder runs without a graph while the α-combine weights still train.
 
 Conf branches the shipped conf does not take raise NotImplementedError
 naming their conf key (:func:`unported_conf_keys`).
@@ -25,6 +31,7 @@ from ruart_tpu_torch.models.bert.model import BertModel, subword_to_word_pooling
 from ruart_tpu_torch.models.fusion.deep_attention import DeepAttention
 from ruart_tpu_torch.models.fusion.layers import (
     Attention,
+    Dropper,
     GetFinalScores,
     LinearSelfAttn,
     weighted_avg,
@@ -108,53 +115,58 @@ class RUArtModel(nn.Module):
         self.Bert = BertModel(s.bert)
         self.alphaBERT = nn.Parameter(torch.ones(s.bert.num_hidden_layers))
         self.gammaBERT = nn.Parameter(torch.ones(1, 1))
+        drop = dict(dropout_p=s.dropout_p, variational=s.variational)
+        self.emb_drop = Dropper(s.dropout_emb, s.variational)
 
         q_word = self._word_dim(s.q_embedding)
         tok_word = self._word_dim(s.ocr_embedding)
         self.pre_align = Attention(
             tok_word, s.prealign_hidden, correlation_func=3,
-            do_similarity=True,
+            do_similarity=True, **drop,
         )
         m2o_in = self._emb_width(s.ocr_embedding) + q_word
         m2o = s.multi2one_output
         self.multi2one = StackedBRNN(
-            m2o_in, s.multi2one_hidden_size, 1, bidirectional=s.multi2one_bidir
+            m2o_in, s.multi2one_hidden_size, 1,
+            bidirectional=s.multi2one_bidir, **drop,
         )
         H, layers = s.hidden_size, s.in_rnn_layers
-        self.context_rnn = StackedBRNN(m2o, H, layers)
-        self.ques_rnn = StackedBRNN(self._emb_width(s.q_embedding), H, layers)
+        self.context_rnn = StackedBRNN(m2o, H, layers, **drop)
+        self.ques_rnn = StackedBRNN(
+            self._emb_width(s.q_embedding), H, layers, **drop
+        )
         abstr = 2 * H * layers
         self.high_lvl_ques_rnn = StackedBRNN(
             abstr, s.highlvl_hidden_size, s.question_high_lvl_rnn_layers,
-            concat_layers=True,
+            concat_layers=True, **drop,
         )
         values = [2 * H] * layers + [s.ques_final_size]
         self.deep_attn = DeepAttention(
             m2o + abstr, values, abstr, s.deep_att_hidden_size_per_abstr,
-            s.highlvl_hidden_size,
+            s.highlvl_hidden_size, **drop,
         )
         ctx = 2 * s.highlvl_hidden_size
         self.highlvl_self_att = Attention(
             ctx + abstr + sum(values) + m2o,
-            s.deep_att_hidden_size_per_abstr, correlation_func=3,
+            s.deep_att_hidden_size_per_abstr, correlation_func=3, **drop,
         )
         self.high_lvl_context_rnn = StackedBRNN(
-            2 * ctx, s.highlvl_hidden_size, 1
+            2 * ctx, s.highlvl_hidden_size, 1, **drop
         )
         self.ques_self_attn = Attention(
             s.ques_final_size, s.query_self_attn_hidden_size,
-            correlation_func=3,
+            correlation_func=3, **drop,
         )
         self.od_ocr_attn = Attention(
-            ctx, H, correlation_func=3, do_similarity=True
+            ctx, H, correlation_func=3, do_similarity=True, **drop
         )
         self.position_attn = Attention(
-            POSITION_WIDTH, H, correlation_func=3, do_similarity=True
+            POSITION_WIDTH, H, correlation_func=3, do_similarity=True, **drop
         )
-        self.ques_merger = LinearSelfAttn(s.ques_final_size)
+        self.ques_merger = LinearSelfAttn(s.ques_final_size, **drop)
         self.get_answer = GetFinalScores(
             s.ocr_final_size, s.ques_final_size, yesno=s.label_yesno,
-            no_answer=s.label_no_answer, use_es=s.use_es,
+            no_answer=s.label_no_answer, use_es=s.use_es, **drop,
         )
         if not q_word == tok_word == m2o:
             raise ValueError(
@@ -212,6 +224,16 @@ class RUArtModel(nn.Module):
             if name.split(".")[-1] in ("alphaBERT", "gammaBERT", "diagonal"):
                 p.fill_(1.0)
         return self
+
+    def seed_dropout(self, seed: int) -> torch.Generator:
+        """Give every dropout site one ``torch.Generator`` on the
+        parameters' device, seeded with ``seed``. Returns it."""
+        device = self.alphaBERT.device
+        generator = torch.Generator(device=device).manual_seed(int(seed))
+        for mod in self.modules():
+            if isinstance(mod, Dropper):
+                mod.generator = generator
+        return generator
 
     # -- encoder -----------------------------------------------------------
     @staticmethod
@@ -292,6 +314,7 @@ class RUArtModel(nn.Module):
             encoded = self.Bert(
                 ids, None, combine_weights=self._combine_weights(),
                 segment_ids=seg, position_ids=pos,
+                stop_layer_gradients=s.lock_bert,
             )[0]
             ofs = 0
             for key, sp in grp:
@@ -331,7 +354,8 @@ class RUArtModel(nn.Module):
                 self.Bert(
                     ids[:, a:a + max_len],
                     None if mask is None else mask[:, a:a + max_len],
-                    combine_weights=w, **kw,
+                    combine_weights=w, stop_layer_gradients=self.spec.lock_bert,
+                    **kw,
                 )[0]
                 for a in range(0, width, max_len)
             ]
@@ -351,7 +375,7 @@ class RUArtModel(nn.Module):
             ones = torch.ones(uo.shape[:2], device=uo.device)
             pooled_u = subword_to_word_pooling(combined, uo, ones)
             pooled = pooled_u.index_select(0, item["bert_inverse"])
-            return pooled * word_mask[..., None]
+            return self.emb_drop(pooled * word_mask[..., None])
         if packed:
             # compose the unpack with the duplicate expansion in one gather
             idx = item["bert_unpack"].index_select(0, item["bert_inverse"])
@@ -360,25 +384,27 @@ class RUArtModel(nn.Module):
             )
         elif dedup:
             combined = combined.index_select(0, item["bert_inverse"])
-        return subword_to_word_pooling(
+        return self.emb_drop(subword_to_word_pooling(
             combined, item["bert_offsets"], word_mask
-        )
+        ))
 
     def _embed(self, item, names, initial, encoded_bert=None):
         """Concatenated embedding (`SDNet.py:439-493`). Returns
-        (embedding, raw word vectors for pre-align / deep attention)."""
+        (embedding, raw word vectors for pre-align / deep attention); the
+        word and BERT parts of the embedding take ``dropout_emb``, the raw
+        word vectors do not."""
         embs = []
         word_emb = None
         if "phoc" in names:
-            embs.append(self.phoc_embed(item["phoc"]))
+            embs.append(self.emb_drop(self.phoc_embed(item["phoc"])))
         if "fasttext" in names:
             word_emb = self.fast_embed(item["fasttext"])
-            embs.append(word_emb)
+            embs.append(self.emb_drop(word_emb))
         if "glove" in names:
             glove = self.glove_embed(item["glove"])
             if word_emb is None:
                 word_emb = glove
-            embs.append(glove)
+            embs.append(self.emb_drop(glove))
         if "bert" in names:
             embs.append(self._bert_words(
                 item, self._word_mask(item, initial), encoded_bert
@@ -503,3 +529,21 @@ class RUArtModel(nn.Module):
             es_len=s.es_ocr_len if s.use_es else None,
             mask_flag=s.mask_score,
         )
+
+
+@torch.no_grad()
+def install_embeddings(model: RUArtModel, glove=None, fasttext=None,
+                       phoc=None) -> RUArtModel:
+    """Copy pretrained word-vector tables (numpy or tensors) into the
+    model's embeddings (`SDNet.py:51-67`); the shapes must match."""
+    for name, table in (("glove_embed", glove), ("fast_embed", fasttext),
+                        ("phoc_embed", phoc)):
+        if table is None:
+            continue
+        weight = getattr(model, name).weight
+        src = torch.as_tensor(table, dtype=weight.dtype)
+        if tuple(src.shape) != tuple(weight.shape):
+            raise ValueError(f"{name}: table {tuple(src.shape)} does not fit "
+                             f"the embedding {tuple(weight.shape)}")
+        weight.copy_(src)
+    return model

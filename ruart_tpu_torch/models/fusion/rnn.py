@@ -16,12 +16,13 @@ from typing import List
 import torch
 from torch import nn
 
-from ruart_tpu_torch.models.fusion.layers import whole_tensor_layer_norm
+from ruart_tpu_torch.models.fusion.layers import Dropper, whole_tensor_layer_norm
 
 
 class StackedBRNN(nn.Module):
     """Multi-layer (Bi)LSTM with per-layer outputs (`Layers.py:124-180`).
 
+    * dropout on each layer's input in training mode (``dropout_p``)
     * optional whole-tensor layer norm after each layer (``ln=True``)
     * ``concat_layers`` concatenates per-layer outputs on the feature axis
 
@@ -29,8 +30,10 @@ class StackedBRNN(nn.Module):
     bidirectional, ``weight_ih_l0_reverse`` ...)."""
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int,
-                 bidirectional: bool = True, concat_layers: bool = False):
+                 bidirectional: bool = True, concat_layers: bool = False,
+                 dropout_p: float = 0.0, variational: bool = True):
         super().__init__()
+        self.drop = Dropper(dropout_p, variational)
         self.num_layers = num_layers
         self.concat_layers = concat_layers
         width = hidden_size * (2 if bidirectional else 1)
@@ -44,7 +47,7 @@ class StackedBRNN(nn.Module):
                 return_list: bool = False):
         hiddens: List[torch.Tensor] = [x]
         for i in range(self.num_layers):
-            out = getattr(self, f"rnn_{i}")(hiddens[-1])[0]
+            out = getattr(self, f"rnn_{i}")(self.drop(hiddens[-1]))[0]
             if ln:
                 out = whole_tensor_layer_norm(out)
             hiddens.append(out)

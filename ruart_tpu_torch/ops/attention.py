@@ -1,12 +1,19 @@
-"""Fused multi-head attention for the BERT encoder, in model layout.
+"""Fused multi-head attention: the BERT encoder's kernel and ``flash_attention``.
 
-Port of ``ruart_tpu/ops/attention.py``'s TPU kernels ``_packed_kernel`` and
-``_grouped_kernel`` (reached through ``grouped_attention``): one CUDA C++
-kernel for sm_90a, ``csrc/attention.cu``, which also states what bounds it
-on an H100 and how its design answers that. The kernel is compiled with
-``nvcc`` at first use into ``ruart_tpu_torch/_build/`` and loaded with
-``ctypes`` (a plain C interface; no PyTorch headers, so the build takes
-seconds).
+Port of the TPU kernels of ``ruart_tpu/ops/attention.py``: ``_packed_kernel``
+and ``_grouped_kernel`` (reached through ``grouped_attention``) and
+``_mha_kernel`` (reached through ``flash_attention``). One CUDA C++ kernel
+for sm_90a, ``csrc/attention.cu``, serves all three: it reads its inputs
+through element strides, so the model layout and the head-major layout take
+the same code without a copy. The source also states what bounds it on an
+H100 and how its design answers that. The kernel is compiled with ``nvcc``
+at first use into ``ruart_tpu_torch/_build/`` and loaded with ``ctypes``
+(a plain C interface; no PyTorch headers, so the build takes seconds).
+
+Model layout (K1/K2): q/k/v are [B, L, H*dh]; ``bias`` is a float32 [B, L]
+additive key bias or a [B, L, L] per-query bias (the packed segment mask).
+The output is [B, L, H*dh] in q's dtype (fp32 or bf16; fp32 scores,
+softmax and sums).
 
 * :func:`attention_rows_plain` — the plain PyTorch version, the
   counterpart of ``attention_rows_xla``. The only path for CPU tensors.
@@ -15,10 +22,17 @@ seconds).
   ``attention_rows_cuda.launches``.
 * :func:`attention_rows` — dispatch on the tensors' device: CPU tensors
   take the plain version, CUDA tensors the kernel. No fallback.
+* :func:`fused_attention` — :func:`attention_rows` under autograd, the
+  counterpart of the JAX custom VJP: the forward is the kernel, the
+  backward recomputes through :func:`attention_rows_plain` (the JAX package
+  has no backward kernel either).
 
-q/k/v are [B, L, H*dh]; ``bias`` is a float32 [B, L] additive key bias or
-a [B, L, L] per-query bias (the packed segment mask). The output is
-[B, L, H*dh] in q's dtype (fp32 or bf16; fp32 scores, softmax and sums).
+Head-major layout (K3): :func:`flash_attention_plain`,
+:func:`flash_attention_cuda` (launch count in
+``flash_attention_cuda.launches``) and the dispatching
+:func:`flash_attention`. q/k/v are [B, H, L, D] in fp32 or bf16, ``bias``
+is [B, 1, 1, L]; the output is [B, H, L, D] float32 whatever the input
+dtype, with fp32 probabilities, as ``_mha_kernel`` computes it.
 """
 
 from __future__ import annotations
@@ -112,6 +126,10 @@ def _library() -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    fn = lib.ruart_flash_attention
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -187,3 +205,121 @@ def attention_rows(
     if q.device.type == "cpu":
         return attention_rows_plain(q, k, v, bias, heads)
     raise ValueError(f"attention_rows: no path for device {q.device}")
+
+
+class _FusedAttention(torch.autograd.Function):
+    """Forward: :func:`attention_rows` (the kernel on CUDA tensors).
+    Backward: the vector-Jacobian product of :func:`attention_rows_plain`
+    at the saved inputs, as ``_fused_attention_bwd`` recomputes through
+    ``attention_rows_xla``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, heads):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.heads = heads
+        return attention_rows(q, k, v, bias, heads)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        wanted = ctx.needs_input_grad[:4]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(w) for t, w in zip(saved, wanted)]
+            out = attention_rows_plain(*inputs, ctx.heads)
+            leaves = [t for t, w in zip(inputs, wanted) if w]
+            got = iter(torch.autograd.grad(out, leaves, grad.to(out.dtype)))
+        return (*(next(got) if w else None for w in wanted), None)
+
+
+def fused_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    heads: int,
+) -> torch.Tensor:
+    """Differentiable :func:`attention_rows` (see :class:`_FusedAttention`)."""
+    return _FusedAttention.apply(q, k, v, bias, heads)
+
+
+def flash_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+) -> torch.Tensor:
+    """Head-major attention in plain PyTorch, as ``_mha_kernel`` computes
+    it: q/k/v [B, H, L, D] cast to fp32, scores scaled by 1/sqrt(D) plus the
+    [B, 1, 1, L] bias, fp32 softmax, fp32 output [B, H, L, D]."""
+    B, H, L, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    s = s + bias.reshape(B, 1, 1, L).float()
+    return torch.matmul(torch.softmax(s, dim=-1), v.float())
+
+
+def _check_flash(q, k, v, bias):
+    if not (q.is_cuda and k.device == q.device and v.device == q.device
+            and bias.device == q.device):
+        raise ValueError("flash_attention_cuda: q, k, v, bias must share one "
+                         "CUDA device")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attention_cuda: dtype {q.dtype} not supported")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("flash_attention_cuda: q, k, v dtypes differ")
+    if bias.dtype != torch.float32:
+        raise ValueError(f"flash_attention_cuda: bias must be float32, "
+                         f"got {bias.dtype}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_attention_cuda: q/k/v shapes {tuple(q.shape)} "
+                         f"{tuple(k.shape)} {tuple(v.shape)}")
+    B, H, L, D = q.shape
+    if D % 8 or not 0 < D <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_cuda: head width {D} must be a "
+                         f"multiple of 8 up to {MAX_HEAD_DIM}")
+    if not 1 <= L <= MAX_LEN:
+        raise ValueError(f"flash_attention_cuda: length {L} not in "
+                         f"[1, {MAX_LEN}]")
+    if H > 65535:
+        raise ValueError(f"flash_attention_cuda: {H} heads exceed 65535")
+    if bias.numel() != B * L or bias.shape[-1] != L:
+        raise ValueError(f"flash_attention_cuda: bias shape {tuple(bias.shape)}"
+                         f" is not {(B, 1, 1, L)}")
+    if k.stride() != q.stride() or v.stride() != q.stride() or q.stride(3) != 1:
+        raise ValueError("flash_attention_cuda: q, k, v must share strides "
+                         "with a contiguous last axis")
+    return B, H, L, D
+
+
+def flash_attention_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+) -> torch.Tensor:
+    """Launch the kernel on head-major CUDA tensors: q/k/v [B, H, L, D]
+    (any batch/head/position strides they share), ``bias`` [B, 1, 1, L];
+    returns a contiguous fp32 [B, H, L, D]."""
+    B, H, L, D = _check_flash(q, k, v, bias)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    if B == 0 or H == 0:
+        return out
+    bias = bias.reshape(B, L).contiguous()
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.ruart_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), B, H, L, D, q.stride(0), q.stride(1), q.stride(2),
+            int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(D), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash attention kernel launch failed: CUDA error "
+                           f"{err}")
+    flash_attention_cuda.launches += 1
+    return out
+
+
+flash_attention_cuda.launches = 0
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+) -> torch.Tensor:
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if q.device.type == "cuda":
+        return flash_attention_cuda(q, k, v, bias)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, bias)
+    raise ValueError(f"flash_attention: no path for device {q.device}")

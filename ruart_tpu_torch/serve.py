@@ -25,8 +25,9 @@ import numpy as np
 import torch
 
 from ruart_tpu_torch.core.config import Config
-from ruart_tpu_torch.data.collate import Collator, slim_block
+from ruart_tpu_torch.data.collate import Collator
 from ruart_tpu_torch.data.dataset import VQADataset
+from ruart_tpu_torch.data.pipeline import host_block, put_block
 from ruart_tpu_torch.data.preprocess import Preprocessor
 from ruart_tpu_torch.eval.decoder import decode_batch
 from ruart_tpu_torch.models.fusion.model import RUArtModel
@@ -39,48 +40,20 @@ _ZERO4 = [0, 0, 0, 0]
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the CUDA card, and raises when there is none: the
-    port has no silent CPU path."""
+    port has no silent CPU path. On CUDA, fp32 stays full fp32: TF32 is
+    turned off for matmuls and for cuDNN (which also runs the LSTMs)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "no CUDA device available; pass device='cpu' to run on the CPU"
+                "no CUDA device available; pass device='cpu' to run on the "
+                "CPU (RUART_PLATFORM=cpu for the command-line tools)"
             )
-        return torch.device("cuda")
-    return torch.device(device)
-
-
-def check_indices(block: Mapping[str, np.ndarray], spec: ModelSpec) -> None:
-    """Raise ValueError when an id or gather index of a collated host
-    block falls outside the table it indexes. On the card an out-of-range
-    gather is a device-side assert that ends the process, so every index
-    source is checked here, on the host, before the transfer."""
-    bert = spec.bert
-    bounds = {
-        "glove": spec.vocab_size, "fasttext": spec.vocab_size,
-        "phoc": spec.vocab_size, "pos": spec.pos_vocab, "ent": spec.ent_vocab,
-        "bert": bert.vocab_size, "bert_unique": bert.vocab_size,
-        "bert_packed": bert.vocab_size,
-        "bert_packed_pos": bert.max_position_embeddings,
-    }
-    table = next((block[k] for k in ("bert_unique_offsets", "bert_unpack",
-                                     "bert_unique") if k in block), None)
-    if table is not None:
-        bounds["bert_inverse"] = table.shape[0]
-    if "bert_packed" in block:
-        bounds["bert_unpack"] = block["bert_packed"].size
-    grid = next((block[k] for k in ("fasttext", "glove") if k in block), None)
-    if grid is not None and grid.ndim == 3:
-        bounds["cand_sel"] = grid.shape[0] * grid.shape[1] + 1  # + sentinel
-        bounds["len"] = grid.shape[2] + 1
-    for key, v in block.items():
-        if v.dtype.kind not in "iu" or v.size == 0:
-            continue
-        hi = bounds.get(key)
-        if v.min() < 0 or (hi is not None and v.max() >= hi):
-            raise ValueError(
-                f"batch key {key!r}: values in [{v.min()}, {v.max()}] fall "
-                f"outside [0, {hi})"
-            )
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
 
 
 class InferenceEngine:
@@ -99,9 +72,6 @@ class InferenceEngine:
         self.spec = spec
         self.tokenizer = tokenizer
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
         with self.device:
             self.model = RUArtModel(spec)
         self.model.load_state_dict(
@@ -180,19 +150,13 @@ class InferenceEngine:
 
     def to_device(self, block: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """Slim, check and move one collated host block to the device;
-        aliased grids (one array under several keys) move once."""
-        if self._h2d_slim:
-            block = slim_block(block)
-        check_indices(block, self.spec)
-        moved: Dict[int, torch.Tensor] = {}
-        out = {}
-        for k, v in block.items():
-            t = moved.get(id(v))
-            if t is None:
-                t = torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                moved[id(v)] = t
-            out[k] = t
-        return out
+        aliased grids (one array under several keys) move once
+        (``data.pipeline.host_block`` + ``put_block``)."""
+        return put_block(
+            host_block(block, self.spec, self._h2d_slim,
+                       pin=self.device.type == "cuda"),
+            self.device,
+        )
 
     # -- inference -----------------------------------------------------------
     def predict(self, samples: Sequence[Dict[str, Any]]) -> List[Dict[str, Any]]:

@@ -153,6 +153,15 @@ class WordpieceTokenizer:
         return out
 
 
+def load_vocab(vocab_file: str) -> Dict[str, int]:
+    """vocab.txt -> token->id, line order = id (`tokenization.py:60-73`)."""
+    vocab: Dict[str, int] = {}
+    with open(vocab_file, encoding="utf-8") as f:
+        for idx, line in enumerate(f):
+            vocab[line.rstrip("\n").strip()] = idx
+    return vocab
+
+
 class WordPieceTokenizer:
     """End-to-end BERT tokenizer + the reference's bertify contract."""
 
@@ -179,6 +188,10 @@ class WordPieceTokenizer:
         self._bertify_cache: Dict[Any, tuple] = {}
         self._cache_cap = 1 << 20
         self.wordpiece = WordpieceTokenizer(vocab)
+
+    @classmethod
+    def from_file(cls, vocab_file: str, do_lower_case: bool = True):
+        return cls(load_vocab(vocab_file), do_lower_case)
 
     def tokenize(self, text: str) -> List[str]:
         cached = self._cache.get(text)

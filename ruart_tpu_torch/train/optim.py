@@ -1,0 +1,200 @@
+"""Optimizer and parameter-freezing policy — port of
+``ruart_tpu/train/optim.py``.
+
+The JAX package builds its optimizer from optax; this module computes the
+same updates in PyTorch, written out as optax computes them
+(`SDNetTrainer.setup_model:305-317` semantics):
+
+* optimizer '#' (shipped) -> optax ``adamax`` (lr from conf, default 2e-3):
+  ``mu = (1 - b1) g + b1 mu``, ``nu = max(|g| + eps, b2 nu)``,
+  ``update = -lr (mu / (1 - b1^t)) / nu``, the rule of the installed
+  optax. (``torch.optim.Adamax`` folds the learning rate into the bias
+  correction before the division; the port does not use it.)
+* 'ADAM' -> ``add_decayed_weights(0.5)`` then adamax(1e-3); 'ADAM2' ->
+  optax ``adam``; 'SGD' -> optax ``sgd``.
+* ``clip_by_global_norm(grad_clip)`` over the TRAINABLE parameters only
+  (the clip sits inside the trainable branch of ``multi_transform``): the
+  gradient is replaced by ``g / norm * max_norm`` when ``norm >=
+  max_norm`` and kept otherwise (no ``+ 1e-6``, unlike
+  ``clip_grad_norm_``).
+* frozen roots get no state and no update: the BERT encoder under
+  LOCK_BERT (`SDNet.py:91-94`), and the glove/fast/phoc embeddings unless
+  TUNE_PARTIAL (`SDNet.py:76-86`).
+* TUNE_PARTIAL row pinning (:func:`make_row_pinner`): rows >= tune_partial
+  and row 1 are restored after every update (`SDNetTrainer.py:369-373`);
+  their gradients still count in the global norm and their moments still
+  update, as in the JAX package.
+
+A gradient that autograd left as ``None`` (a parameter the loss does not
+reach) counts as zeros, as JAX's dense gradients do.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ruart_tpu_torch.models.fusion.spec import ModelSpec
+
+OPTIMIZERS = ("#", "ADAM", "ADAM2", "SGD")
+B1, B2, EPS = 0.9, 0.999, 1e-8
+
+
+def frozen_roots(spec: ModelSpec, tune_partial: bool) -> frozenset:
+    """Top-level module names whose parameters never update."""
+    roots = set()
+    if spec.lock_bert:
+        roots.add("Bert")
+    if not tune_partial:
+        roots.update({"glove_embed", "fast_embed", "phoc_embed"})
+    return frozenset(roots)
+
+
+class Optimizer:
+    """The JAX package's optax chain for one model, updating its
+    parameters in place. :meth:`step` reads ``param.grad``; the step
+    count lives on the host, every other value on the parameters'
+    device, so a step needs no host synchronisation."""
+
+    def __init__(
+        self,
+        opt_name: str,
+        lr: Optional[float],
+        grad_clip: float,
+        model: nn.Module,
+        spec: ModelSpec,
+        tune_partial: bool,
+    ):
+        if opt_name not in OPTIMIZERS:
+            raise ValueError(f"optimizer is wrong: {opt_name!r}")
+        if opt_name == "SGD" and lr is None:
+            raise ValueError("optimizer SGD needs lr")
+        self.name = opt_name
+        default_lr = {"#": 2e-3, "ADAM2": 1e-3}.get(opt_name)
+        # 'ADAM' is adamax at a fixed 1e-3 whatever the conf says
+        self.lr = 1e-3 if opt_name == "ADAM" else (lr if lr is not None else default_lr)
+        self.grad_clip = float(grad_clip)
+        frozen = frozen_roots(spec, tune_partial)
+        self.params: Dict[str, nn.Parameter] = {
+            name: p for name, p in model.named_parameters()
+            if name.split(".")[0] not in frozen
+        }
+        self.count = 0
+        self.state: Dict[str, Dict[str, torch.Tensor]] = {}
+        if opt_name != "SGD":
+            self.state = {
+                name: {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
+                for name, p in self.params.items()
+            }
+
+    def zero_grad(self):
+        for p in self.params.values():
+            p.grad = None
+
+    def _clipped_grads(self) -> List[torch.Tensor]:
+        grads = [
+            p.grad if p.grad is not None else torch.zeros_like(p)
+            for p in self.params.values()
+        ]
+        if not grads:
+            return grads
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
+                            self.grad_clip / norm)
+        return torch._foreach_mul(grads, scale)
+
+    @torch.no_grad()
+    def step(self):
+        """One update of every trainable parameter. The arithmetic runs as
+        ``torch._foreach_*`` calls over all parameters at once (a few
+        kernel launches per operation instead of one per parameter); the
+        moments update in place."""
+        params = list(self.params.values())
+        if not params:
+            return
+        grads = self._clipped_grads()
+        self.count += 1
+        t = self.count
+        if self.name == "SGD":
+            torch._foreach_add_(params, grads, alpha=-self.lr)
+            return
+        if self.name == "ADAM":
+            grads = torch._foreach_add(grads, params, alpha=0.5)
+        mus = [self.state[n]["mu"] for n in self.params]
+        nus = [self.state[n]["nu"] for n in self.params]
+        torch._foreach_mul_(mus, B1)
+        torch._foreach_add_(mus, grads, alpha=1 - B1)
+        update = torch._foreach_div(mus, float(np.float32(1 - B1 ** t)))
+        if self.name == "ADAM2":
+            torch._foreach_mul_(nus, B2)
+            torch._foreach_addcmul_(nus, grads, grads, value=1 - B2)
+            denom = torch._foreach_sqrt(
+                torch._foreach_div(nus, float(np.float32(1 - B2 ** t))))
+            torch._foreach_add_(denom, EPS)
+        else:
+            absg = torch._foreach_abs(grads)
+            torch._foreach_add_(absg, EPS)
+            torch._foreach_mul_(nus, B2)
+            torch._foreach_maximum_(nus, absg)
+            denom = nus
+        torch._foreach_div_(update, denom)
+        torch._foreach_add_(params, update, alpha=-self.lr)
+
+    # -- checkpoint state (the port's own keys; see train/checkpoint.py) ---
+    def state_dict(self) -> Dict[str, np.ndarray]:
+        out = {"count": np.asarray(self.count, np.int64)}
+        for name, st in self.state.items():
+            for slot, value in st.items():
+                out[f"{slot}/{name}"] = value.detach().cpu().numpy()
+        return out
+
+    def load_state_dict(self, arrays: Dict[str, np.ndarray]):
+        """Raises ValueError when ``arrays`` was written for another set of
+        parameters, shapes or optimizer."""
+        want = set(self.state_dict())
+        if set(arrays) != want:
+            missing = sorted(want - set(arrays))[:3]
+            extra = sorted(set(arrays) - want)[:3]
+            raise ValueError(f"optimizer state keys differ (missing {missing}, "
+                             f"unexpected {extra})")
+        for name, st in self.state.items():
+            for slot in st:
+                shape = np.shape(arrays[f"{slot}/{name}"])
+                if shape != tuple(st[slot].shape):
+                    raise ValueError(f"optimizer state {slot}/{name}: shape "
+                                     f"{shape} vs {tuple(st[slot].shape)}")
+        for name, st in self.state.items():
+            for slot in st:
+                st[slot] = torch.as_tensor(
+                    np.asarray(arrays[f"{slot}/{name}"]), dtype=st[slot].dtype
+                ).to(st[slot].device)
+        self.count = int(arrays["count"])
+
+
+def make_row_pinner(
+    model: nn.Module, spec: ModelSpec, tune_partial_rows: Optional[int]
+) -> Callable[[], None]:
+    """Returns f() that restores the fixed embedding rows of ``model`` in
+    place after an update: rows >= ``tune_partial_rows`` and row 1 (<UNK>,
+    the reference's Embedding padding_idx), captured from the parameters as
+    they are now (the reference keeps them as buffers, `SDNet.py:78-81`)."""
+    if tune_partial_rows is None:
+        return lambda: None
+    tp = int(tune_partial_rows)
+    fixed = {}
+    with torch.no_grad():
+        for name in ("glove_embed", "fast_embed"):
+            if hasattr(model, name):
+                weight = getattr(model, name).weight
+                fixed[name] = (weight, weight[tp:].clone(), weight[1].clone())
+
+    @torch.no_grad()
+    def pin():
+        for weight, tail, row1 in fixed.values():
+            weight[tp:] = tail
+            weight[1] = row1
+
+    return pin

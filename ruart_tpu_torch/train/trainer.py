@@ -1,0 +1,396 @@
+"""Trainer: end-to-end orchestration (train / eval / test inference) on one
+device — port of ``ruart_tpu/train/trainer.py``.
+
+The equivalent of `Models/SDNetTrainer.py` + `BaseTrainer.py`: run-folder
+allocation (``conf~/run_<N>``), conf snapshotting, preprocessing
+bootstrap, model/optimizer setup, the training loop with its 1500-batch
+eval cadence and 30-batch log cadence, best-ANLS/ACC checkpointing, exact
+sampler-offset resume, and ``predict_for_test``, which writes
+``submission.json``.
+
+The trainer runs on the CUDA card unless the caller passes ``device="cpu"``
+(the CLIs do so under ``RUART_PLATFORM=cpu``); without a card it raises.
+These JAX branches are not ported and raise NotImplementedError naming
+their conf key: mesh and multi-host execution (``coordinator_address``,
+``tensor_parallel``, several visible cards without ``no_mesh``), the
+``DEBUG`` data scan, ``INT8_BERT`` evaluation (refused by ``ModelSpec``),
+``fixed_answers`` and ``img_feature``.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import shutil
+import time
+from typing import Dict, Optional
+
+import msgpack
+import numpy as np
+import torch
+
+from ruart_tpu_torch.convert import bert_state_from_torch
+from ruart_tpu_torch.core.config import Config
+from ruart_tpu_torch.data.collate import Collator
+from ruart_tpu_torch.data.dataset import VQADataset
+from ruart_tpu_torch.data.pipeline import (
+    batch_iterator,
+    device_put_batch,
+    host_batch,
+    prefetch,
+)
+from ruart_tpu_torch.data.preprocess import Preprocessor
+from ruart_tpu_torch.data.sampler import VQASampler
+from ruart_tpu_torch.eval.evaluator import evaluate, write_submission
+from ruart_tpu_torch.models.bert.config import BertConfig
+from ruart_tpu_torch.models.fusion.model import RUArtModel, install_embeddings
+from ruart_tpu_torch.models.fusion.spec import ModelSpec
+from ruart_tpu_torch.serve import resolve_device
+from ruart_tpu_torch.text.wordpiece import WordPieceTokenizer, build_demo_vocab
+from ruart_tpu_torch.train import checkpoint as ckpt
+from ruart_tpu_torch.train.loss import make_loss_fn
+from ruart_tpu_torch.train.optim import Optimizer, make_row_pinner
+from ruart_tpu_torch.train.train_step import (
+    init_train_state,
+    make_eval_step,
+    make_train_step,
+)
+from ruart_tpu_torch.utils.meters import AverageMeter
+
+log = logging.getLogger(__name__)
+
+
+def resolve_bert_artifacts(opt: Dict) -> tuple:
+    """(tokenizer_file, model_dir) conf values, honoring the BERT_LARGE
+    redirection to the *_large_* keys (`VQA_Dataset.py:49-58`,
+    `Bert/Bert.py:26-28`)."""
+    if "BERT_LARGE" in opt:
+        tok = opt.get("BERT_large_tokenizer_file", opt.get("BERT_tokenizer_file"))
+        mdl = opt.get("BERT_large_model_file", opt.get("BERT_model_file"))
+        return tok, mdl
+    return opt.get("BERT_tokenizer_file"), opt.get("BERT_model_file")
+
+
+class Trainer:
+    def __init__(self, cfg: Config, bert_config: Optional[BertConfig] = None,
+                 device=None):
+        self.cfg = cfg
+        self.opt = cfg.opt
+        for key in ("coordinator_address", "fixed_answers", "img_feature"):
+            if key in self.opt:
+                raise NotImplementedError(
+                    f"conf key {key}: not ported to ruart_tpu_torch"
+                )
+        if int(self.opt.get("tensor_parallel", 1)) > 1:
+            raise NotImplementedError(
+                "conf key tensor_parallel: mesh execution is not ported"
+            )
+        self.device = resolve_device(device)
+        if (self.device.type == "cuda" and torch.cuda.device_count() > 1
+                and "no_mesh" not in self.opt):
+            raise NotImplementedError(
+                f"{torch.cuda.device_count()} visible cards: mesh execution "
+                "is not ported (set no_mesh, or show one card)"
+            )
+        self.opt.setdefault("datadir", ".")
+        self.opt["FEATURE_FOLDER"] = os.path.join(
+            self.opt["datadir"], "./source/data/", str(self.opt.get("source_dir", "")), ""
+        ) if "FEATURE_FOLDER" not in self.opt else self.opt["FEATURE_FOLDER"]
+        self.preproc = Preprocessor(cfg)
+        self.bert_config = bert_config
+        self.save_folder: Optional[str] = None
+        self.train_loss = AverageMeter()
+        self.updates = 0
+        self.best_anls = -1.0
+        self.best_acc = -1.0
+        self.best_anls_batch = -1
+        self.best_acc_batch = -1
+        # host-clock records of the last train() / run_eval() calls
+        self.train_seconds = 0.0
+        self.eval_history: list = []
+
+    # -- folders (`BaseTrainer.py:48-69`) --------------------------------
+    def get_save_folder(self, is_train: bool) -> str:
+        if is_train:
+            runid = 1
+            while True:
+                folder = os.path.join(self.opt["datadir"], "conf~", f"run_{runid}")
+                if not os.path.exists(folder):
+                    os.makedirs(folder)
+                    self.save_folder = folder
+                    log.info("Saving logs, model and evaluation in %s", folder)
+                    return folder
+                runid += 1
+        p = "/".join(str(self.opt["MODEL_PATH"]).split("/")[:2])
+        self.save_folder = os.path.join(self.opt["datadir"], p)
+        os.makedirs(self.save_folder, exist_ok=True)
+        return self.save_folder
+
+    def save_conf_copy(self):
+        conf_file = self.opt.get("confFile")
+        if conf_file and os.path.isfile(conf_file) and self.save_folder:
+            shutil.copyfile(conf_file, os.path.join(self.save_folder, "conf_copy"))
+
+    # -- model setup (`SDNetTrainer.setup_model:290-328`) ----------------
+    def setup_model(self, embeddings: Dict[str, np.ndarray]):
+        cfg = self.cfg
+        tok_file, bert_dir = resolve_bert_artifacts(self.opt)
+        self.tokenizer = WordPieceTokenizer(build_demo_vocab())
+        if tok_file:
+            tok_path = os.path.join(self.opt["datadir"], str(tok_file))
+            if os.path.isfile(tok_path):
+                self.tokenizer = WordPieceTokenizer.from_file(tok_path)
+            else:
+                log.warning("BERT vocab %s missing; using demo vocab", tok_path)
+        # the BERT embedding table must cover every tokenizer id
+        if self.bert_config is not None and self.bert_config.vocab_size < len(
+            self.tokenizer.vocab
+        ):
+            import dataclasses
+
+            self.bert_config = dataclasses.replace(
+                self.bert_config, vocab_size=len(self.tokenizer.vocab)
+            )
+        self.spec = ModelSpec.from_config(cfg, self.bert_config)
+        # random init on the host from a seeded generator (the same weights
+        # on every device), then the pretrained tables
+        model = RUArtModel(self.spec).init_weights(
+            torch.Generator().manual_seed(cfg.seed)
+        )
+        install_embeddings(
+            model,
+            glove=embeddings.get("glove_embedding"),
+            fasttext=embeddings.get("fast_embedding"),
+            phoc=embeddings.get("phoc_embedding"),
+        )
+        if bert_dir:
+            bert_path = os.path.join(self.opt["datadir"], str(bert_dir))
+            cfg_json = os.path.join(bert_path, "bert_config.json")
+            bin_path = os.path.join(bert_path, "pytorch_model.bin")
+            if os.path.isfile(cfg_json) and os.path.isfile(bin_path):
+                bert = BertConfig.from_json(cfg_json)
+                state = torch.load(bin_path, map_location="cpu", weights_only=True)
+                model.load_state_dict(
+                    bert_state_from_torch(state, bert.num_hidden_layers),
+                    strict=False,
+                )
+                log.info("Loaded pretrained BERT from %s", bert_path)
+        self.model = model.to(self.device)
+        self.collator = Collator(cfg)
+        self._h2d_slim = bool(int(cfg.opt.get("h2d_slim", 1)))
+
+        tune_partial = (
+            int(self.opt["tune_partial"]) if "TUNE_PARTIAL" in self.opt else None
+        )
+        self.optimizer = Optimizer(
+            str(self.opt.get("optimizer", "#")),
+            float(self.opt["lr"]) if "lr" in self.opt else None,
+            float(self.opt.get("grad_clipping", 10)),
+            self.model,
+            self.spec,
+            tune_partial is not None,
+        )
+        self.loss_fn = make_loss_fn(str(self.opt.get("loss", "BCE_D1")))
+        row_pinner = make_row_pinner(self.model, self.spec, tune_partial)
+        self.train_step = make_train_step(
+            self.loss_fn, row_pinner, debug_nans="DEBUG_NANS" in self.opt,
+        )
+        self.eval_step = make_eval_step(self.model, self.loss_fn)
+        self.state = init_train_state(self.model, self.optimizer, cfg.seed)
+        self.updates = 0
+
+    # -- checkpoint plumbing --------------------------------------------
+    def save(self, filename: str, epoch: int = 0):
+        meta = {
+            "updates": self.updates,
+            "train_loss": self.train_loss.state_dict(),
+            "epoch": epoch,
+            "config": {k: v for k, v in self.opt.items() if _json_safe(v)},
+        }
+        ckpt.save_checkpoint(filename, self.model, self.optimizer, meta)
+
+    def save_for_predict(self, filename: str):
+        ckpt.save_for_predict(filename, self.model, {"updates": self.updates})
+
+    def load_model(self, path: str, with_optimizer: bool = True):
+        """Key-intersection load of the parameters; the optimizer state too
+        unless ``with_optimizer`` is False (prediction never steps)."""
+        opt_arrays, jax_opt, meta = ckpt.load_checkpoint(path, self.model)
+        if with_optimizer:
+            ckpt.restore_optimizer(
+                self.optimizer, opt_arrays, jax_opt,
+                strict="LENIENT_OPT_RESUME" not in self.opt,
+            )
+        self.updates = int(meta.get("updates", 0))
+        if "train_loss" in meta:
+            self.train_loss.load_state_dict(meta["train_loss"])
+        log.info("Loading finished %s", path)
+
+    def _resume_path(self) -> Optional[str]:
+        if "RESUME" in self.opt and "MODEL_PATH" in self.opt:
+            model_path = os.path.join(self.opt["datadir"], self.opt["MODEL_PATH"])
+            if not os.path.exists(model_path):
+                # a typo'd MODEL_PATH must not silently train from scratch
+                # or emit a random-weights submission
+                raise FileNotFoundError(f"RESUME checkpoint not found: {model_path}")
+            return model_path
+        return None
+
+    # -- data loading ----------------------------------------------------
+    def _load_split(self, label: str):
+        path = os.path.join(
+            self.opt["FEATURE_FOLDER"], f"{label}-preprocessed.msgpack"
+        )
+        with open(path, "rb") as f:
+            return msgpack.unpack(f, raw=False, strict_map_key=False)
+
+    def _dataset(self, label_data, mode: str) -> VQADataset:
+        return VQADataset(
+            label_data["data"], self.cfg, mode=mode, tokenizer=self.tokenizer
+        )
+
+    def _host_put(self, batch):
+        return host_batch(batch, self.spec, self._h2d_slim,
+                          pin=self.device.type == "cuda")
+
+    # -- evaluation (`SDNetTrainer.evaluate:128-176`) --------------------
+    def run_eval(self, dataset: VQADataset, batch_i: int, mode: str = "dev"):
+        t0 = time.perf_counter()
+        result = evaluate(
+            self.eval_step, dataset, self.cfg, self.spec, self.device,
+            self.collator,
+        )
+        self.eval_history.append({
+            "mode": mode, "batch": batch_i, "n": result["n"],
+            "seconds": time.perf_counter() - t0,
+            "ANLS": result["ANLS"], "ACC": result["ACC"],
+        })
+        if mode == "test":
+            write_submission(
+                result["res"], self.save_folder, result["n"],
+                self.cfg.batch_size,
+            )
+            return result
+        if mode == "dev" and self.save_folder:
+            with open(os.path.join(self.save_folder, "save_res_last.json"), "w") as f:
+                json.dump(result["save_res"], f, indent=2)
+            if result["ANLS"] > self.best_anls:
+                self.best_anls = result["ANLS"]
+                self.best_anls_batch = batch_i
+                self.save_for_predict(
+                    os.path.join(self.save_folder, "ANLS_best_model.ckpt")
+                )
+            if result["ACC"] > self.best_acc:
+                self.best_acc = result["ACC"]
+                self.best_acc_batch = batch_i
+                self.save_for_predict(
+                    os.path.join(self.save_folder, "ACC_best_model.ckpt")
+                )
+        log.info(
+            "Dataset: %s Batch: %7d ANLS: %.3f Best ANLS: %.3f Batch: %d "
+            "ACC: %.3f Best ACC: %.3f Batch: %d",
+            mode, batch_i, result["ANLS"], self.best_anls, self.best_anls_batch,
+            result["ACC"], self.best_acc, self.best_acc_batch,
+        )
+        return result
+
+    # -- training loop (`SDNetTrainer.train:52-126`) ---------------------
+    def train(self, eval_every: int = 1500, log_every: int = 30):
+        self.get_save_folder(is_train=True)
+        self.save_conf_copy()
+        self.preproc.ensure_preprocessed()
+        vocab, char_vocab, embeddings = self.preproc.load_data()
+        self.vocab = vocab
+        self.setup_model(embeddings)
+        model_path = self._resume_path()
+        if model_path is not None:
+            self.load_model(model_path)
+        if "DEBUG" in self.opt:
+            raise NotImplementedError(
+                "conf key DEBUG: the data dry-run scan is not ported"
+            )
+
+        train_data = self._dataset(self._load_split("train"), "train")
+        val_data = self._dataset(self._load_split("val"), "dev")
+        batch_st = int(self.opt.get("batch_st", 0))
+        sampler = VQASampler(
+            len(train_data), self.cfg.batch_size, train=True,
+            max_batch_number=int(self.opt.get("max_batch_num", 0)) or None,
+            batch_st=batch_st,
+            epoch=self.opt.get("epoch"),
+        )
+        it = batch_iterator(
+            train_data, sampler, self.collator,
+            num_workers=int(self.opt.get("num_worker", 0)),
+        )
+        start = time.time()
+        batch_i = batch_st - 1
+        # per-step device losses wait here and are read only at log_every
+        # cadence: a per-step .item() would stall the host on every step
+        # (the reference's habit, `SDNetTrainer.py:362`). The finite-loss
+        # check therefore fires up to log_every-1 batches late, on a stale
+        # loss (the reference asserts at once, `SDNetTrainer.py:352-359`).
+        pending: list = []
+
+        def drain_losses(at_batch: int):
+            if not pending:
+                return None
+            vals = torch.stack(pending).double().cpu().numpy()
+            pending.clear()
+            if not np.isfinite(vals).all():
+                first = at_batch - len(vals) + 1 + int(
+                    np.argmax(~np.isfinite(vals))
+                )
+                raise FloatingPointError(f"loss is not finite at batch {first}")
+            for v in vals:
+                self.train_loss.update(float(v), 1)
+            return float(vals[-1])
+
+        eval_seconds = 0.0
+        for host in prefetch(it, size=2, host_put=self._host_put):
+            q, ocr, od, gt, extra = device_put_batch(host, self.device)
+            batch_i += 1
+            if batch_i % eval_every == 0:
+                drain_losses(batch_i - 1)
+                t0 = time.time()
+                self.run_eval(val_data, batch_i)
+                eval_seconds += time.time() - t0
+            self.state, loss = self.train_step(self.state, q, ocr, od, gt)
+            self.updates += 1
+            pending.append(loss)
+            if "DEBUG_SDT" in self.opt:
+                # opt-in per-step debug print (`SDNetTrainer.py:361-362`);
+                # the float() here is a deliberate host sync — debug only
+                print(float(loss), [t.get("q_id") for t in extra])
+            if batch_i % log_every == 0:
+                loss_val = drain_losses(batch_i)
+                done = batch_i - batch_st + 1
+                rate = (time.time() - start) / max(done, 1)
+                remaining = rate * (len(sampler) - batch_st - done)
+                log.info(
+                    "updates[%6d] train loss[%8.5f / %8.5f] remaining[%ds]",
+                    self.updates, self.train_loss.avg, loss_val, int(remaining),
+                )
+        drain_losses(batch_i)
+        self.train_seconds = time.time() - start - eval_seconds
+        self.run_eval(val_data, batch_i)
+        self.run_eval(train_data, batch_i, mode="train")
+        log.info("Training over")
+
+    # -- test inference (`SDNetTrainer.predict_for_test:231-251`) --------
+    def predict_for_test(self):
+        self.get_save_folder(is_train=False)
+        self.preproc.ensure_preprocessed()
+        vocab, char_vocab, embeddings = self.preproc.load_data()
+        self.setup_model(embeddings)
+        test_raw = self._load_split("test")
+        model_path = self._resume_path()
+        if model_path is not None:
+            self.load_model(model_path, with_optimizer=False)
+        test_data = self._dataset(test_raw, "test")
+        return self.run_eval(test_data, 0, mode="test")
+
+
+def _json_safe(v) -> bool:
+    return isinstance(v, (str, int, float, bool, type(None)))
