@@ -6,16 +6,23 @@
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and exits
 non-zero when there is none, or when any phase fails:
 
-1. Build ``ruart_tpu_torch/csrc/attention.cu`` with nvcc and hold the
-   model-layout kernel (K1/K2) against its plain PyTorch version on the
-   card: both bias forms, fp32 and bf16, at the serving path's shapes (H 12,
-   dh 64, L 32 and 50, hundreds of rows), at L 512 and at dh 48, with an
+1. Build ``ruart_tpu_torch/csrc/attention.cu`` with nvcc (print each
+   kernel's registers and spills from ``-Xptxas -v`` and the blocks an SM
+   keeps resident at the timed shapes) and hold the model-layout kernel
+   (K1/K2) against its plain PyTorch version on the card: both bias forms,
+   fp32 and bf16, at the serving path's shapes (H 12, dh 64, L 32 and 50,
+   hundreds of rows), at L 512 and at dh 48, then at the edges of the
+   kernel's tiling (L 1, 17, 65, 128 and 130; dh 8 and 128), with an
    all-pad row in the segment form. Tolerance: 1e-5 abs in fp32, 2e-2 abs
-   in bf16. q and k are drawn on a dyadic grid so every score is exact in
-   fp32 whatever the summation order: the check then measures the
+   in bf16. These q and k are drawn on a dyadic grid so every score is
+   exact in fp32 whatever the summation order: the check then measures the
    kernel's softmax and sums, not fp32 rounding of ``score - 10000`` on a
-   query row whose keys are all masked. At dh 48 the scale 1/sqrt(48) is
-   inexact, so there every query row keeps a valid key.
+   query row whose keys are all masked. Where 1/sqrt(dh) is inexact (dh 8,
+   48, 128) every query row keeps a valid key. Then fp32 cases off the grid
+   (not exact in TF32, every query keeping a valid key) at the serving
+   shape and at L 128: a kernel that dropped its 3xTF32 split would miss
+   1e-5 there. Last, q/k/v at an address off 16-byte alignment, which the
+   kernel stages element by element.
 2. Serve 40 synthetic requests through ``InferenceEngine.predict`` at the
    flagship width (``stvqa_config(vocab_size=5000, batch_size=16)``,
    BERT-base, random weights from a seeded ``torch.Generator``): three
@@ -24,14 +31,20 @@ non-zero when there is none, or when any phase fails:
    A second pass gives requests per second. Then the kernel, its plain
    version and ``scaled_dot_product_attention`` (the library yardstick,
    used nowhere in the port) are timed at the attention shape the serving
-   run gave most often.
+   run gave most often, and at K2's: each replayed from a CUDA graph over
+   copies of the inputs that hold more than 100 MB together, so every call
+   finds them cold in L2. Each time is printed beside its bound (bytes
+   over 3.35 TB/s, or fp32 operations over the 165 TFLOP/s of 3xTF32 on
+   the tensor cores) and the share of the bound it reaches.
 3. Run the same batches with ``attention_impl='plain'``: scores must agree
    within 1e-4 abs.
 4. ``flash_attention`` (K3, the head-major kernel) against its plain
    version: fp32 and bf16 inputs (fp32 output) at [B, H, L, D] = (16, 12,
-   128, 64), (3, 2, 16, 8) and (2, 4, 50, 64) with an all-masked key tail;
-   tolerances as phase 1. K3, its plain version and SDPA are timed at
-   (16, 12, 128, 64).
+   128, 64), at the tiling's edges (L 1, 16, 17, 50, 65, 128, 512; D 8,
+   48, 64, 128) with an all-masked key tail, fp32 off the grid at
+   (16, 12, 128, 64), and rows 65 elements apart (not 16-byte aligned);
+   tolerances as phase 1. K3, its plain version and
+   SDPA are timed at (16, 12, 128, 64) as in phase 2.
 5. The attention's ``autograd.Function`` (kernel forward, backward through
    the plain version) against the plain version under autograd at the
    serving shape (136 packed rows x L 32, 12 heads of 64, segment bias):
@@ -46,7 +59,8 @@ non-zero when there is none, or when any phase fails:
    entry per test item, and the kernel must launch in every step. Prints
    the median step time (10 steps on one batch, each ended by a
    synchronize), steps/s of the CLI's loop, eval q/s of the prediction
-   (the CLI's first pass, and a warm second pass of the same evaluator),
+   (the CLI's first pass, and the median of three warm passes of the same
+   evaluator),
    the peak device memory and profiled steps (device-busy share, top
    kernels, top host operations).
 7. One train step on the card with the kernel and again with
@@ -63,6 +77,7 @@ and, last, ``{"ok": true, "device": {...}}``.
 """
 
 import collections
+import ctypes
 import json
 import math
 import os
@@ -76,12 +91,19 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_REQUESTS = 40
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
-H100_FP32_FLOP_PER_S = 67e12   # fp32 outside the tensor cores
+# fp32-accurate products on the tensor cores: 3xTF32, a third of the data
+# sheet's 495 TFLOP/s TF32 (fp32 outside the tensor cores is 67 TFLOP/s)
+H100_TF32X3_FLOP_PER_S = 495e12 / 3
+COLD_BYTES = 100 * 10**6        # inputs rotated through per timing (L2: 50 MB)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SCORE_TOL = 1e-4
 GRAD_TOL = 1e-5
 SERVE_SHAPE = (136, 32, 12, 64, True)   # packed rows, L, heads, dh, segment
-FLASH_SHAPES = [(16, 12, 128, 64), (3, 2, 16, 8), (2, 4, 50, 64)]
+FLASH_SHAPES = [  # [B, H, L, D]: the timed shape first, then tiling edges
+    (16, 12, 128, 64), (3, 2, 16, 8), (2, 4, 50, 64), (4, 3, 1, 64),
+    (3, 2, 17, 8), (2, 3, 65, 48), (2, 2, 128, 128), (1, 2, 512, 128),
+    (2, 2, 512, 64),
+]
 K2_SHAPE = (64, 32, 16, 48, True)
 N_TRAIN, N_VAL, N_TEST = 320, 32, 40
 UNIQUE_ES = 15   # ES words per training item made unique: ~4,900 words
@@ -116,11 +138,13 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def make_inputs(B, L, H, dh, dtype, bias_2d, seed, pad_rows=True):
-    """q, k on a 1/16 grid (exact scores), v ~ N(0, 0.25) — outputs below 2,
-    where one bf16 step is 2**-7; the segment bias has
-    random packed segments, with pad tails and an all-pad row 0 when
-    ``pad_rows``; the key bias has random valid lengths >= 1."""
+def make_inputs(B, L, H, dh, dtype, bias_2d, seed, pad_rows=True,
+                on_grid=True):
+    """q, k ~ N(0, 0.25), on a 1/16 grid (exact scores, exact in TF32) when
+    ``on_grid``; v ~ N(0, 0.25) — outputs below 2, where one bf16 step is
+    2**-7; the segment bias has random packed segments, with pad tails and
+    an all-pad row 0 when ``pad_rows`` (else every query keeps a valid
+    key); the key bias has random valid lengths >= 1."""
     import torch
 
     from ruart_tpu_torch.models.bert.model import attention_bias
@@ -130,7 +154,7 @@ def make_inputs(B, L, H, dh, dtype, bias_2d, seed, pad_rows=True):
 
     def grid():
         x = torch.randn(B, L, D, generator=g, device="cuda") * 0.5
-        return (torch.round(x * 16) / 16).to(dtype)
+        return (torch.round(x * 16) / 16 if on_grid else x).to(dtype)
 
     q, k = grid(), grid()
     v = (torch.randn(B, L, D, generator=g, device="cuda") * 0.5).to(dtype)
@@ -156,41 +180,136 @@ def make_inputs(B, L, H, dh, dtype, bias_2d, seed, pad_rows=True):
     return q, k, v, bias.contiguous()
 
 
-def check_kernel(att):
-    """Phase 1: the kernel against its plain version. Returns the worst
-    fp32 abs error of the K1 shapes (dh 64) and of the K2 shape (dh 48)."""
+def unaligned(x):
+    """The values of contiguous ``x`` at an address one element past a
+    16-byte boundary."""
     import torch
 
-    cases = [  # (rows, L, heads, dh)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def padded_rows(x):
+    """[B, H, L, D] ``x`` as a view whose rows lie D + 1 elements apart."""
+    import torch
+
+    buf = torch.zeros(*x.shape[:-1], x.shape[-1] + 1, dtype=x.dtype,
+                      device=x.device)
+    buf[..., :-1] = x
+    return buf[..., :-1]
+
+
+def check_kernel(att):
+    """Phase 1: the kernel against its plain version. Returns the worst
+    fp32 abs error of the shapes the JAX package sends to K1
+    (``_packed_kernel``: dh divides 128 and heads fill the bundles) and of
+    those it sends to K2."""
+    import torch
+
+    cases = [  # (rows, L, heads, dh): serving lengths, then edges of the tiling
         (256, 32, 12, 64), (256, 50, 12, 64), (8, 512, 12, 64),
-        (64, 32, 16, 48),
+        (64, 32, 16, 48), (64, 1, 4, 64), (64, 17, 4, 64), (32, 65, 4, 64),
+        (16, 128, 12, 64), (16, 32, 4, 8), (16, 50, 4, 128), (4, 130, 2, 128),
     ]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     by_kernel = {"K1": 0.0, "K2": 0.0}
+
+    def check(B, L, H, dh, dtype, bias_2d, seed, on_grid, shift=False):
+        # an all-pad query row compares fp32 roundings of score - 10000:
+        # only where the scores are exact (q, k on the grid and 1/sqrt(dh)
+        # a power of two)
+        q, k, v, bias = make_inputs(B, L, H, dh, dtype, bias_2d, seed,
+                                    pad_rows=on_grid and dh in (16, 64),
+                                    on_grid=on_grid)
+        if shift:  # not 16-byte aligned: the kernel's per-element staging
+            q, k, v = (unaligned(x) for x in (q, k, v))
+        got = att.attention_rows_cuda(q, k, v, bias, H)
+        torch.cuda.synchronize()
+        want = att.attention_rows_plain(q, k, v, bias, H)
+        err = (got.float() - want.float()).abs().max().item()
+        name = str(dtype).split(".")[-1]
+        form = "segment [B,L,L]" if bias_2d else "key [B,L]"
+        ok = math.isfinite(err) and err <= TOL[name]
+        log(f"kernel check B={B} L={L} H={H} dh={dh} {name} {form}"
+            f"{'' if on_grid else ' off-grid'}{' unaligned' if shift else ''}"
+            f": max |kernel - plain| = "
+            f"{err:.3e} (tol {TOL[name]:g}){'' if ok else '  FAIL'}")
+        if not ok:
+            raise AssertionError("attention kernel disagrees with its plain "
+                                 "version")
+        worst[name] = max(worst[name], err)
+        if name == "float32":
+            packed = 128 % dh == 0 and H % (128 // dh) == 0
+            kernel = "K1" if packed else "K2"
+            by_kernel[kernel] = max(by_kernel[kernel], err)
+
     for i, (B, L, H, dh) in enumerate(cases):
         for dtype in (torch.float32, torch.bfloat16):
             for bias_2d in (True, False):
-                q, k, v, bias = make_inputs(B, L, H, dh, dtype, bias_2d, i,
-                                            pad_rows=dh == 64)
-                got = att.attention_rows_cuda(q, k, v, bias, H)
-                torch.cuda.synchronize()
-                want = att.attention_rows_plain(q, k, v, bias, H)
-                err = (got.float() - want.float()).abs().max().item()
-                name = str(dtype).split(".")[-1]
-                form = "segment [B,L,L]" if bias_2d else "key [B,L]"
-                ok = math.isfinite(err) and err <= TOL[name]
-                log(f"kernel check B={B} L={L} H={H} dh={dh} {name} {form}: "
-                    f"max |kernel - plain| = {err:.3e} (tol {TOL[name]:g})"
-                    f"{'' if ok else '  FAIL'}")
-                if not ok:
-                    raise AssertionError("attention kernel disagrees with "
-                                         "its plain version")
-                worst[name] = max(worst[name], err)
-                if name == "float32":
-                    k = "K1" if dh == 64 else "K2"
-                    by_kernel[k] = max(by_kernel[k], err)
+                check(B, L, H, dh, dtype, bias_2d, i, True)
+    # q, k off the grid are not exact in TF32: a kernel that dropped the
+    # 3xTF32 split would miss 1e-5 here by two orders of magnitude
+    B, L, H, dh, _ = SERVE_SHAPE
+    for j, (B, L, H, dh) in enumerate([(B, L, H, dh), (16, 128, 12, 64)]):
+        for bias_2d in (True, False):
+            check(B, L, H, dh, torch.float32, bias_2d, 100 + j, False)
+    for dtype in (torch.float32, torch.bfloat16):
+        check(64, 50, 4, 64, dtype, True, 110, True, shift=True)
     log(f"phase 1: worst bf16 error {worst['bfloat16']:.3e}")
     return by_kernel
+
+
+def cold_ms(fn, sets, iters: int = 20) -> float:
+    """Device ms per call of ``fn(*inputs)``, rotating over ``sets`` of
+    inputs that hold more than COLD_BYTES together, so each call finds its
+    inputs cold in the 50 MB L2. One call per set is captured in a CUDA
+    graph and the graph is replayed ``iters`` times between two events: the
+    time is the device's, without the host's launch overhead."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up (and build) off the capture
+        for x in sets:
+            fn(*x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for x in sets:
+            fn(*x)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * len(sets))
+
+
+def n_cold_sets(set_bytes: int) -> int:
+    return COLD_BYTES // set_bytes + 1
+
+
+def timed(kernel, plain, library, sets, nbytes, flops):
+    """(kernel, plain, library ms cold in L2, bound ms, bound_by, kernel ms
+    hot in L2 as PR 2 timed it) for three functions of the same inputs."""
+    ms, plain_ms, lib_ms = (cold_ms(fn, sets) for fn in (kernel, plain, library))
+    hot = cuda_ms(lambda: kernel(*sets[0]))
+    return (ms, plain_ms, lib_ms) + bound(nbytes, flops) + (hot,)
+
+
+def log_timing(name, shape, r):
+    ms, plain_ms, lib_ms, bound_ms, bound_by, hot = r
+    log(f"{name} at {shape}, inputs cold in L2: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms; bound {bound_ms:.4f} ms "
+        f"({bound_by}): kernel at {100 * bound_ms / ms:.1f}% of its bound, "
+        f"sdpa at {100 * bound_ms / lib_ms:.1f}%; kernel hot in L2 (PR 2's "
+        f"timing, host launches) {hot:.4f} ms")
 
 
 def time_kernel(att, shape):
@@ -200,15 +319,19 @@ def time_kernel(att, shape):
     import torch.nn.functional as F
 
     B, L, H, dh, bias_2d = shape
-    q, k, v, bias = make_inputs(B, L, H, dh, torch.float32, bias_2d, 7)
-    ms = cuda_ms(lambda: att.attention_rows_cuda(q, k, v, bias, H))
-    plain_ms = cuda_ms(lambda: att.attention_rows_plain(q, k, v, bias, H))
-    qh, kh, vh = (t.view(B, L, H, dh).transpose(1, 2) for t in (q, k, v))
-    mask = bias[:, None] if bias_2d else bias[:, None, None, :]
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=mask))
-    nbytes = 4 * q.numel() * q.element_size() + bias.numel() * 4
-    return (ms, plain_ms, lib_ms) + bound(nbytes, 4 * B * H * L * L * dh)
+    one = make_inputs(B, L, H, dh, torch.float32, bias_2d, 7)
+    nbytes = 4 * one[0].numel() * one[0].element_size() + one[3].numel() * 4
+    sets = [one] + [make_inputs(B, L, H, dh, torch.float32, bias_2d, 7 + i)
+                    for i in range(1, n_cold_sets(nbytes))]
+
+    def sdpa(q, k, v, bias):
+        qh, kh, vh = (t.view(B, L, H, dh).transpose(1, 2) for t in (q, k, v))
+        mask = bias[:, None] if bias_2d else bias[:, None, None, :]
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+    return timed(lambda *x: att.attention_rows_cuda(*x, H),
+                 lambda *x: att.attention_rows_plain(*x, H), sdpa, sets,
+                 nbytes, 4 * B * H * L * L * dh)
 
 
 def build_engine(attention_impl, params=None):
@@ -300,23 +423,25 @@ def batch_scores(engine, reqs):
 
 def bound(nbytes: float, flops: float):
     """The least time (ms) the card could take: the larger of the bytes
-    over its memory rate and the fp32 operations over its fp32 rate."""
+    over its memory rate and the fp32 operations over the fastest
+    fp32-accurate rate it has (3xTF32 on the tensor cores)."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOP_PER_S * 1e3
+    t_ops = flops / H100_TF32X3_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def flash_inputs(B, H, L, D, dtype, seed):
-    """Head-major q, k on a 1/16 grid (exact scores), v ~ N(0, 0.25), and a
-    [B, 1, 1, L] key bias: ~20% of keys masked at random, key 0 kept, and
-    the last fifth of the keys masked for every row (an all-masked tail)."""
+def flash_inputs(B, H, L, D, dtype, seed, on_grid=True):
+    """Head-major q, k ~ N(0, 0.25), on a 1/16 grid (exact scores) when
+    ``on_grid``, v ~ N(0, 0.25), and a [B, 1, 1, L] key bias: ~20% of keys
+    masked at random, key 0 kept, and the last fifth of the keys masked for
+    every row (an all-masked tail). Every query keeps key 0."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def grid():
         x = torch.randn(B, H, L, D, generator=g, device="cuda") * 0.5
-        return (torch.round(x * 16) / 16).to(dtype)
+        return (torch.round(x * 16) / 16 if on_grid else x).to(dtype)
 
     q, k = grid(), grid()
     v = (torch.randn(B, H, L, D, generator=g, device="cuda") * 0.5).to(dtype)
@@ -332,23 +457,34 @@ def check_flash(att):
     import torch
 
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    for i, (B, H, L, D) in enumerate(FLASH_SHAPES):
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, bias = flash_inputs(B, H, L, D, dtype, 20 + i)
-            got = att.flash_attention_cuda(q, k, v, bias)
-            torch.cuda.synchronize()
-            want = att.flash_attention_plain(q, k, v, bias)
-            name = str(dtype).split(".")[-1]
-            err = (got - want).abs().max().item()
-            ok = (got.dtype == torch.float32 and math.isfinite(err)
-                  and err <= TOL[name])
-            log(f"flash check [B,H,L,D]=({B},{H},{L},{D}) {name} in, "
-                f"{str(got.dtype).split('.')[-1]} out: max |kernel - plain| = "
-                f"{err:.3e} (tol {TOL[name]:g}){'' if ok else '  FAIL'}")
-            if not ok:
-                raise AssertionError("flash attention kernel disagrees with "
-                                     "its plain version")
-            worst[name] = max(worst[name], err)
+    cases = [(shape, dtype, True) for shape in FLASH_SHAPES
+             for dtype in (torch.float32, torch.bfloat16)]
+    # off the grid (not exact in TF32): catches a kernel without the split
+    cases.append((FLASH_SHAPES[0], torch.float32, False))
+    # rows 65 elements apart: not 16-byte aligned, staged element by element
+    cases += [((2, 3, 65, 64), dtype, None)
+              for dtype in (torch.float32, torch.bfloat16)]
+    for i, ((B, H, L, D), dtype, on_grid) in enumerate(cases):
+        q, k, v, bias = flash_inputs(B, H, L, D, dtype, 20 + i,
+                                     on_grid is not False)
+        if on_grid is None:
+            q, k, v = (padded_rows(x) for x in (q, k, v))
+        got = att.flash_attention_cuda(q, k, v, bias)
+        torch.cuda.synchronize()
+        want = att.flash_attention_plain(q, k, v, bias)
+        name = str(dtype).split(".")[-1]
+        err = (got - want).abs().max().item()
+        ok = (got.dtype == torch.float32 and math.isfinite(err)
+              and err <= TOL[name])
+        log(f"flash check [B,H,L,D]=({B},{H},{L},{D}) {name} in"
+            f"{' off-grid' if on_grid is False else ''}"
+            f"{' unaligned' if on_grid is None else ''}, "
+            f"{str(got.dtype).split('.')[-1]} out: max |kernel - plain| = "
+            f"{err:.3e} (tol {TOL[name]:g}){'' if ok else '  FAIL'}")
+        if not ok:
+            raise AssertionError("flash attention kernel disagrees with "
+                                 "its plain version")
+        worst[name] = max(worst[name], err)
     return worst["float32"]
 
 
@@ -358,12 +494,38 @@ def time_flash(att):
     import torch.nn.functional as F
 
     B, H, L, D = FLASH_SHAPES[0]
-    q, k, v, bias = flash_inputs(B, H, L, D, torch.float32, 30)
-    ms = cuda_ms(lambda: att.flash_attention_cuda(q, k, v, bias))
-    plain_ms = cuda_ms(lambda: att.flash_attention_plain(q, k, v, bias))
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
-    nbytes = 4 * q.numel() * 4 + bias.numel() * 4
-    return (ms, plain_ms, lib_ms) + bound(nbytes, 4 * B * H * L * L * D)
+    nbytes = 4 * B * H * L * D * 4 + B * L * 4
+    sets = [flash_inputs(B, H, L, D, torch.float32, 30 + i)
+            for i in range(n_cold_sets(nbytes))]
+
+    def sdpa(q, k, v, bias):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+    return timed(att.flash_attention_cuda, att.flash_attention_plain, sdpa,
+                 sets, nbytes, 4 * B * H * L * L * D)
+
+
+def ptxas_report(report: str):
+    """One line per kernel of nvcc's ``-Xptxas -v`` report: registers,
+    spills and shared memory, under the demangled name when c++filt is
+    there."""
+    kernels, name = [], None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            kernels.append([name, ""])
+        elif kernels and ("spill" in line or "registers" in line):
+            kernels[-1][1] += " " + line.split(":", 1)[-1].strip()
+    names = [n for n, _ in kernels]
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    for shown, (_, props) in zip(names, kernels):
+        shown = shown.replace("(anonymous namespace)::", "").split("(")[0]
+        log(f"  ptxas: {shown}:{props}")
 
 
 def check_autograd(att):
@@ -650,9 +812,14 @@ def main() -> int:
     t0 = time.time()
     report = att.build_kernel(force=True)
     log(f"phase 1: built {att.LIBRARY.name} in {time.time() - t0:.1f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log("  ptxas:", line.strip())
+    ptxas_report(report)
+    blocks_per_sm = att._library().ruart_attention_blocks_per_sm
+    blocks_per_sm.argtypes = [ctypes.c_int] * 5
+    for name, (L, dh, bias_2d, flash) in (("K1", (SERVE_SHAPE[1], 64, 1, 0)),
+                                          ("K2", (K2_SHAPE[1], 48, 1, 0)),
+                                          ("K3", (FLASH_SHAPES[0][2], 64, 0, 1))):
+        log(f"  {name} fp32 at L {L}, dh {dh}: "
+            f"{blocks_per_sm(L, dh, 0, bias_2d, flash)} blocks resident per SM")
     errs = check_kernel(att)
     log(f"phase 1 ok: worst fp32 error K1 {errs['K1']:.3e}, K2 {errs['K2']:.3e}")
 
@@ -700,11 +867,9 @@ def main() -> int:
 
     shape = shapes.most_common(1)[0][0]
     k1 = time_kernel(att, shape)
-    log(f"K1 at {shape}: kernel {k1[0]:.4f} ms, plain {k1[1]:.4f} ms, "
-        f"sdpa {k1[2]:.4f} ms, bound {k1[3]:.4f} ms ({k1[4]})")
+    log_timing("K1", shape, k1)
     k2 = time_kernel(att, K2_SHAPE)
-    log(f"K2 at {K2_SHAPE}: kernel {k2[0]:.4f} ms, plain {k2[1]:.4f} ms, "
-        f"sdpa {k2[2]:.4f} ms, bound {k2[3]:.4f} ms ({k2[4]})")
+    log_timing("K2", K2_SHAPE, k2)
 
     # -- phase 3: the same batches through the plain version -----------------
     plain, _ = build_engine("plain", params)
@@ -726,9 +891,8 @@ def main() -> int:
     # -- phase 4: K3 against its plain version --------------------------------
     k3_err = check_flash(att)
     k3 = time_flash(att)
-    log(f"phase 4 ok: K3 worst fp32 error {k3_err:.3e}; at "
-        f"{FLASH_SHAPES[0]} kernel {k3[0]:.4f} ms, plain {k3[1]:.4f} ms, "
-        f"sdpa {k3[2]:.4f} ms, bound {k3[3]:.4f} ms ({k3[4]})")
+    log_timing("K3", FLASH_SHAPES[0], k3)
+    log(f"phase 4 ok: K3 worst fp32 error {k3_err:.3e}")
 
     # -- phase 5: K1's autograd.Function -------------------------------------
     check_autograd(att)
@@ -799,19 +963,24 @@ def main() -> int:
             sub = json.load(f)
         last = predictor.eval_history[-1]
         first_qps = last["n"] / last["seconds"]
-        # the CLI's pass is the model's first on new shapes; time a second,
-        # warm pass of the same evaluator over the same test split
+        # the CLI's pass is the model's first on new shapes; time three more,
+        # warm passes of the same evaluator over the same test split (host
+        # clock on a shared host: the median of the three)
         from ruart_tpu_torch.eval.evaluator import evaluate
 
         test_data = predictor._dataset(predictor._load_split("test"), "test")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        evaluate(predictor.eval_step, test_data, predictor.cfg, predictor.spec,
-                 predictor.device, predictor.collator)
-        eval_qps = len(test_data) / (time.perf_counter() - t0)
+        warm = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            evaluate(predictor.eval_step, test_data, predictor.cfg,
+                     predictor.spec, predictor.device, predictor.collator)
+            warm.append(len(test_data) / (time.perf_counter() - t0))
+        eval_qps = statistics.median(warm)
         log(f"phase 6: CLI predict {len(sub)} answers, launches "
             f"{predict_counts}, eval {last['n']} items in {last['seconds']:.3f} s "
-            f"({first_qps:.2f} q/s, first pass), warm pass {eval_qps:.2f} q/s, "
+            f"({first_qps:.2f} q/s, first pass), warm passes "
+            f"{[round(x, 2) for x in warm]} q/s (median {eval_qps:.2f}), "
             f"peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         if len(sub) != N_TEST or not all(isinstance(r["answer"], str) for r in sub):
@@ -833,7 +1002,7 @@ def main() -> int:
     source = "ruart_tpu_torch/csrc/attention.cu"
 
     def entry(name, replaces, launches, err, timing):
-        ms, plain_ms, lib_ms, bound_ms, bound_by = timing
+        ms, plain_ms, lib_ms, bound_ms, bound_by, _ = timing
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
