@@ -19,7 +19,18 @@ reverse order. Variants:
 * ``no_split`` -- the small TF32 parts set to 0: the products still run,
   the conversions that make them do not;
 * ``skeleton`` -- no products, no small parts, ``expf`` replaced by a
-  multiply: the copies, the fragment loads and the stores alone.
+  multiply: the copies, the fragment loads and the stores alone;
+* ``hoisted`` -- the compiler free to keep Q's 3xTF32 parts across key
+  tiles (twice Q's registers);
+* ``maxnreg112`` -- at most 112 registers a thread, for more resident
+  blocks;
+* ``head_fastest`` -- blocks numbered heads fastest (a grid of (H,
+  rows x query tiles)), so that the blocks that run together read
+  neighbouring heads of the same rows;
+* ``key_tile16`` -- two key tiles of 16 at 16 < L <= 32, so the second
+  tile's copy overlaps the first tile's products.
+
+``--variants`` picks some of them (``change`` always runs).
 
 Prints the card, each variant's registers and spills, and one line per
 variant and round with both times, their share of the bytes bound and the
@@ -49,6 +60,24 @@ PATCHES = {
                   "  small = 0u;"),
                  ("#include <stdint.h>",
                   "#include <stdint.h>\n#define expf(x) ((x) * 0.5f)")],
+    "hoisted": [('''      asm volatile("" : "+f"(qa[d].x), "+f"(qa[d].y), "+f"(qa[d].z),
+                   "+f"(qa[d].w), "+f"(qb[d].x), "+f"(qb[d].y), "+f"(qb[d].z),
+                   "+f"(qb[d].w));
+''', "")],
+    "maxnreg112": [("__global__ void __launch_bounds__(kMaxWarps * 32)",
+                    "__global__ void __maxnreg__(112)")],
+    "head_fastest": [
+        ("  const int b = blockIdx.x / p.n_qtiles;",
+         "  const int b = blockIdx.y / p.n_qtiles;"),
+        ("  const int q0 = (blockIdx.x % p.n_qtiles) * p.qtile;",
+         "  const int q0 = (blockIdx.y % p.n_qtiles) * p.qtile;"),
+        ("  const int h = blockIdx.y;", "  const int h = blockIdx.x;"),
+        ("fn<<<dim3((unsigned)(B * p.n_qtiles), (unsigned)H),",
+         "fn<<<dim3((unsigned)H, (unsigned)(B * p.n_qtiles)),")],
+    "key_tile16": [("  p.ktile = L > kKeyTile ? kKeyTile : (L + 7) / 8 * 8;",
+                    "  p.ktile = L > kKeyTile ? kKeyTile\n"
+                    "            : L > 16     ? 16\n"
+                    "                         : (L + 7) / 8 * 8;")],
 }
 
 
@@ -79,6 +108,8 @@ def load(lib):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", help="an earlier attention.cu to time")
+    parser.add_argument("--variants", nargs="*", choices=list(PATCHES),
+                        default=list(PATCHES), help="variants to time")
     args = parser.parse_args()
 
     import torch
@@ -97,9 +128,9 @@ def main() -> int:
         with open(args.parent) as f:
             sources["parent"] = f.read()
     sources["change"] = source
-    for name, patches in PATCHES.items():
+    for name in args.variants:
         src = source
-        for old, new in patches:
+        for old, new in PATCHES[name]:
             if src.count(old) != 1:
                 raise SystemExit(f"{name}: patch does not apply: {old!r}")
             src = src.replace(old, new)
