@@ -27,12 +27,14 @@
 // runs is bound by device memory: the least time is (q + k + v + out +
 // bias bytes) / 3.35 TB/s. (On the CUDA cores' 67 TFLOP/s, L 128 was bound
 // by operations.) mma.sync does not reach the data sheet's TF32 rate,
-// though: at L 128 the products take about as long as the bytes would.
+// though: measured, the products add about as much time as the copies
+// take at L 32, and twice as much at L 128.
 //
 // Design. One block per (row, head, tile of up to 64 queries), with
 // min(4, ceil(L / 16)) warps of 16 query rows each (the m of m16n8k8).
 // K and V of a (row, head) are read from device memory once per query
-// tile: once for L <= 64 (every serving shape), twice at L 128.
+// tile: once for L <= 64 (every serving shape), twice at L 128. Blocks
+// are numbered heads fastest, so those that run together share rows.
 //   * Staging: K, V and the bias come in tiles of 32 keys by 16-byte
 //     cp.async (4-byte copies for a bias whose rows are not 16-byte
 //     aligned), rows past L and columns past dh zero-filled (source size
@@ -59,20 +61,21 @@
 //   * Softmax on the accumulator fragments (online over key tiles): the
 //     C fragment holds a query row's values in one quad of 4 lanes, so the
 //     row max takes 2 shuffles and the 16 rows of a warp move together; the
-//     row sum is reduced once, in the epilogue, which divides by it once.
+//     row sum is reduced once, in the epilogue.
 //   * P stays in registers: the k order of P V is permuted so that column t
 //     of the A fragment is key 2t and column t + 4 is key 2t + 1 -- the two
 //     keys the lane already holds in S's C fragment -- and V's rows are read
 //     in the same order. No shuffle, no shared-memory round trip.
-//   * Epilogue: lanes t and t ^ 1 swap half their C fragment, so that each
-//     lane holds four neighbouring outputs of one row, and write them with
-//     16-byte stores (8-byte for bf16) through the output layout's strides.
+//   * Epilogue: one reciprocal of the row sum per row; lanes t and t ^ 1
+//     swap half their C fragment, so that each lane holds four neighbouring
+//     outputs of one row, and write them with 16-byte stores (8-byte for
+//     bf16) through the output layout's strides.
 //   * mma.sync, not wgmma: wgmma takes 64-row tiles per warpgroup, which at
-//     L 32 would span two (row, head) pairs, takes TF32 operands only
-//     K-major from shared memory (V would need a transpose in shared
-//     memory), and the serving shape is bound by bytes and by how many
-//     blocks stay resident, not by the products. wgmma is for a later
-//     change if the products at L 128 are to go faster.
+//     L 32 would span two (row, head) pairs, and takes its TF32 B operand
+//     only K-major from shared memory, so V would need a transpose and
+//     both split parts of K and V a place in shared memory. mma.sync keeps
+//     the serving shape near half its bytes bound; wgmma is the next step
+//     if the products are to go faster, mainly at L 128.
 // The finite bias is added as given -- masked keys are never skipped -- so
 // a query whose keys are all masked averages over all L keys exactly as
 // the TPU kernel does, and a cross-segment key's exp(-10000 + s - max)
@@ -115,6 +118,7 @@ __host__ __device__ constexpr int v_pitch(int dp) {
 // and the dynamic shared memory.
 struct Plan {
   int warps, qtile, n_qtiles, ktile, n_ktiles, stages, bpitch, smem;
+  int rows;  // rows x query tiles of the launch
 };
 
 template <typename T, int DP>
@@ -127,6 +131,7 @@ Plan plan(int L, bool bias_2d) {
   p.ktile = L > kKeyTile ? kKeyTile : (L + 7) / 8 * 8;
   p.n_ktiles = (L + p.ktile - 1) / p.ktile;
   p.stages = p.n_ktiles > 1 ? 2 : 1;
+  p.rows = 0;
   p.bpitch = p.ktile + 8;
   p.smem = p.stages *
            (p.ktile * (k_pitch(DP) + v_pitch<T>(DP)) * (int)sizeof(T) +
@@ -291,9 +296,13 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   T* vsm = ksm + p.stages * p.ktile * kKP;
   float* bsm = reinterpret_cast<float*>(vsm + p.stages * p.ktile * kVP);
 
-  const int b = blockIdx.x / p.n_qtiles;
-  const int q0 = (blockIdx.x % p.n_qtiles) * p.qtile;
-  const int h = blockIdx.y;
+  // heads fastest, so the blocks that run together read neighbouring
+  // heads of the same rows; y and z number rows x query tiles
+  const int h = blockIdx.x;
+  const int r = blockIdx.y + blockIdx.z * gridDim.y;
+  if (r >= p.rows) return;
+  const int b = r / p.n_qtiles;
+  const int q0 = (r % p.n_qtiles) * p.qtile;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -473,14 +482,15 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     l[i] += __shfl_xor_sync(kFull, l[i], 1);
     l[i] += __shfl_xor_sync(kFull, l[i], 2);
   }
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
   const bool odd = t & 1;
   const int pos = row0 + g + (odd ? 8 : 0);
   TO* orow = out + (long long)b * o.batch + (long long)h * o.head +
              pos * o.pos + 4 * (t >> 1);
 #pragma unroll
   for (int n = 0; n < kD8; ++n) {
-    const float c0 = acc[n][0] / l[0], c1 = acc[n][1] / l[0];
-    const float c2 = acc[n][2] / l[1], c3 = acc[n][3] / l[1];
+    const float c0 = acc[n][0] * inv[0], c1 = acc[n][1] * inv[0];
+    const float c2 = acc[n][2] * inv[1], c3 = acc[n][3] * inv[1];
     const float r0 = __shfl_xor_sync(kFull, odd ? c0 : c2, 1);
     const float r1 = __shfl_xor_sync(kFull, odd ? c1 : c3, 1);
     if (pos < L && 8 * n + 4 * (t >> 1) < dh)
@@ -512,13 +522,16 @@ struct Family {
                     const float* bias, void* out, int B, int H, int L, int dh,
                     Layout in, Layout o, bool vec, float scale,
                     cudaStream_t stream) {
-    const Plan p = plan<T, DP>(L, kBias2d);
-    if ((long long)B * p.n_qtiles > 0x7fffffffLL)
-      return (int)cudaErrorInvalidValue;
+    Plan p = plan<T, DP>(L, kBias2d);
+    const long long rows = (long long)B * p.n_qtiles;
+    if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    p.rows = (int)rows;
+    const unsigned y = rows < 65535 ? (unsigned)rows : 65535u;
+    const unsigned z = (unsigned)((rows + y - 1) / y);
     const int err = prepare();
     if (err != 0) return err;
     const Kernel<T, TO> fn = kernel();
-    fn<<<dim3((unsigned)(B * p.n_qtiles), (unsigned)H), p.warps * 32, p.smem,
+    fn<<<dim3((unsigned)H, y, z), p.warps * 32, p.smem,
          stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                    static_cast<const T*>(v), bias, static_cast<TO*>(out), in,
                    o, L, dh, p, vec, scale);
@@ -556,8 +569,8 @@ template <typename T, typename TO>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            void* out, int B, int H, int L, int dh, int bias_2d, Layout in,
            Layout o, float scale, void* stream) {
-  if (B <= 0 || L <= 0 || L > kMaxLen || H <= 0 || H > 65535 || dh <= 0 ||
-      dh > 128 || dh % 8 != 0)
+  if (B <= 0 || L <= 0 || L > kMaxLen || H <= 0 || dh <= 0 || dh > 128 ||
+      dh % 8 != 0)
     return (int)cudaErrorInvalidValue;
   // 16-byte copies need 16-byte aligned rows; the output is always so
   constexpr long long kVec = 16 / sizeof(T);

@@ -24,9 +24,10 @@ reverse order. Variants:
   tiles (twice Q's registers);
 * ``maxnreg112`` -- at most 112 registers a thread, for more resident
   blocks;
-* ``head_fastest`` -- blocks numbered heads fastest (a grid of (H,
-  rows x query tiles)), so that the blocks that run together read
-  neighbouring heads of the same rows;
+* ``row_fastest`` -- blocks numbered rows fastest (a grid of (rows x
+  query tiles, H)) instead of heads fastest;
+* ``divide`` -- each output divided by its row sum instead of multiplied
+  by one reciprocal per row;
 * ``key_tile16`` -- two key tiles of 16 at 16 < L <= 32, so the second
   tile's copy overlaps the first tile's products.
 
@@ -66,14 +67,17 @@ PATCHES = {
 ''', "")],
     "maxnreg112": [("__global__ void __launch_bounds__(kMaxWarps * 32)",
                     "__global__ void __maxnreg__(112)")],
-    "head_fastest": [
-        ("  const int b = blockIdx.x / p.n_qtiles;",
-         "  const int b = blockIdx.y / p.n_qtiles;"),
-        ("  const int q0 = (blockIdx.x % p.n_qtiles) * p.qtile;",
-         "  const int q0 = (blockIdx.y % p.n_qtiles) * p.qtile;"),
-        ("  const int h = blockIdx.y;", "  const int h = blockIdx.x;"),
-        ("fn<<<dim3((unsigned)(B * p.n_qtiles), (unsigned)H),",
-         "fn<<<dim3((unsigned)H, (unsigned)(B * p.n_qtiles)),")],
+    "row_fastest": [
+        ("  const int h = blockIdx.x;\n"
+         "  const int r = blockIdx.y + blockIdx.z * gridDim.y;",
+         "  const int h = blockIdx.y;\n  const int r = blockIdx.x;"),
+        ("    fn<<<dim3((unsigned)H, y, z),",
+         "    fn<<<dim3((unsigned)rows, (unsigned)H),")],
+    "divide": [("  const float inv[2] = {1.f / l[0], 1.f / l[1]};\n", ""),
+               ("    const float c0 = acc[n][0] * inv[0], c1 = acc[n][1] * inv[0];\n"
+                "    const float c2 = acc[n][2] * inv[1], c3 = acc[n][3] * inv[1];",
+                "    const float c0 = acc[n][0] / l[0], c1 = acc[n][1] / l[0];\n"
+                "    const float c2 = acc[n][2] / l[1], c3 = acc[n][3] / l[1];")],
     "key_tile16": [("  p.ktile = L > kKeyTile ? kKeyTile : (L + 7) / 8 * 8;",
                     "  p.ktile = L > kKeyTile ? kKeyTile\n"
                     "            : L > 16     ? 16\n"
