@@ -71,6 +71,24 @@ non-zero when there is none, or when any phase fails:
    way: there each arm must stay within lr of the start. The largest
    gradient difference (over the global gradient norm) is printed beside
    the plain arm's difference from a second plain step.
+8. The serving stack at the width of phase 2, on the same 40 requests:
+   (a) the pipelined ``predict`` against the serial path (answers equal,
+   scores within 1e-4 of it and of phase 2; q/s of three calls each, in
+   turns); (b) ``warmup_calibrated`` and ``warmup(max_programs=32)``
+   (counts and seconds; every signature of the batches served afterwards
+   was warmed) and the first pass of a fresh engine with and without
+   warmup; (c) ``BatchingServer(max_wait_ms=10)``: two bursts of the 40
+   requests with the answers of ``predict``, ``stats()``, one lone
+   request; (d) a ``num_worker 2`` engine: collated batches byte-equal to
+   serial, equal answers, q/s against serial; (e) ``quantize()``: the int8
+   encoder with the kernel against the int8 plain path (scores within
+   1e-4), answer agreement with fp32, q/s, encoder weight bytes; (f) in
+   phase 6's run folder, ``cli.serve_main`` with ``--warmup 8``, fp32 and
+   ``INT8_BERT``, 40 lines with the answers of an engine loaded from the
+   same checkpoint, and ``cli.main_test`` under ``INT8_BERT``. Each path
+   runs with the launch counts set to 0 and must launch K1 12 times per
+   batch (once per layer: the question and candidate rows share one
+   encoder call).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.
@@ -334,7 +352,8 @@ def time_kernel(att, shape):
                  nbytes, 4 * B * H * L * L * dh)
 
 
-def build_engine(attention_impl, params=None):
+def build_engine(attention_impl, params=None, **opts):
+    """The flagship serving engine on the card (``opts``: more conf keys)."""
     import torch
 
     from ruart_tpu_torch.core.presets import stvqa_config
@@ -349,7 +368,7 @@ def build_engine(attention_impl, params=None):
     cfg = stvqa_config(
         vocab_size=5000, batch_size=16,
         preprocess_ocr_name="ocr_PMTD_ASTER,ES_ocr",
-        preprocess_od_name="OD_bottom-up",
+        preprocess_od_name="OD_bottom-up", **opts,
     )
     spec = ModelSpec.from_config(cfg, BertConfig(attention_impl=attention_impl))
     # word vocabulary from a processed synthetic corpus, as bench.py builds it
@@ -420,6 +439,235 @@ def batch_scores(engine, reqs):
         with torch.inference_mode():
             out.append(engine.model(*(engine.to_device(b) for b in (q, ocr, od))))
     return out
+
+
+def serial_predict(engine, reqs):
+    """The engine's batches one after the other: collate, move, run, fetch
+    and decode each before the next starts (the pre-pipeline path)."""
+    out = []
+    for _, n_real, (q, ocr, od, _gt, extra) in engine._collated_batches(reqs):
+        scores = engine._forward([engine.to_device(b) for b in (q, ocr, od)])
+        out += engine._decode(scores, ocr["num"], extra, n_real)
+    return out
+
+
+def timed_qps(fn, n=N_REQUESTS):
+    """(fn's result, requests per second): host clock, synchronized."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, n / (time.perf_counter() - t0)
+
+
+def block_signature(blocks):
+    """(key, shape, dtype) of every tensor of the model's (q, ocr, od)."""
+    return tuple(tuple((k, tuple(v.shape), str(v.dtype))
+                       for k, v in sorted(b.items())) for b in blocks)
+
+
+def compare_answers(label, got, want, tol=SCORE_TOL):
+    """Equal answers and idx, scores within ``tol``; returns the max score
+    difference."""
+    diff = max(abs(a["score"] - b["score"]) for a, b in zip(got, want))
+    ok = (len(got) == len(want)
+          and [r["answer"] for r in got] == [r["answer"] for r in want]
+          and [r["idx"] for r in got] == [r["idx"] for r in want]
+          and diff <= tol)
+    log(f"  {label}: {len(got)} answers, max |score diff| {diff:.3e} "
+        f"(tol {tol:g}){'' if ok else '  FAIL'}")
+    if not ok:
+        raise AssertionError(f"phase 8: {label} disagrees")
+    return diff
+
+
+def in_turns(ref_name, ref, name, fn):
+    """Three rounds of ``ref`` and ``fn`` (no arguments), the order flipped
+    each round. Returns ({name: [q/s]}, the last result of each) and logs
+    the q/s with their medians."""
+    qps, out = {ref_name: [], name: []}, {}
+    for i in range(3):
+        for arm in ((ref_name, name) if i % 2 == 0 else (name, ref_name)):
+            out[arm], r = timed_qps(ref if arm == ref_name else fn)
+            qps[arm].append(r)
+    log("  in turns: " + "; ".join(
+        f"{arm} {[round(x, 2) for x in v]} q/s (median "
+        f"{statistics.median(v):.2f})" for arm, v in qps.items()))
+    return qps, out
+
+
+def encoder_bytes(engine) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in engine.model.Bert.state_dict().values())
+
+
+def serve_stack(params, reqs, phase2, drive):
+    """Phase 8 (a)-(e): the serving stack at the flagship width on the
+    engine of phase 2. ``drive(label, fn, batches)`` runs one path with the
+    launch counts set to 0 and checks its K1 launches."""
+    from ruart_tpu_torch.serve import BatchingServer
+
+    n_batches = -(-N_REQUESTS // 16)
+    engine, _ = build_engine("auto", params)
+
+    # (a) the pipelined predict against the serial path
+    log("phase 8 (a): pipelined predict against the serial path")
+    _, out = in_turns("serial", lambda: serial_predict(engine, reqs),
+                      "pipelined", lambda: drive(
+                          "pipelined predict", lambda: engine.predict(reqs),
+                          n_batches))
+    piped = out["pipelined"]
+    compare_answers("(a) pipelined vs phase 2", piped, phase2)
+    compare_answers("(a) pipelined vs serial", piped, out["serial"])
+
+    # (b) warmup: first pass of a fresh engine without, then with it
+    fresh, _ = build_engine("auto", params)
+    _, cold_qps = drive("first pass, no warmup",
+                        lambda: timed_qps(lambda: fresh.predict(reqs)), n_batches)
+    del fresh
+    warm, _ = build_engine("auto", params)
+    sigs = []
+    hook = warm.model.register_forward_pre_hook(
+        lambda _m, args: sigs.append(block_signature(args)))
+    t0 = time.perf_counter()
+    n_cal = drive("warmup_calibrated", lambda: warm.warmup_calibrated(reqs),
+                  lambda n: n)
+    cal_s = time.perf_counter() - t0
+    warmed, n_warmed = set(sigs), len(sigs)
+    del sigs[:]
+    _, warm_qps = drive("first pass after warmup_calibrated",
+                        lambda: timed_qps(lambda: warm.predict(reqs)), n_batches)
+    live = set(sigs)
+    hook.remove()
+    t0 = time.perf_counter()
+    n_full = drive("warmup(max_programs=32)",
+                   lambda: warm.warmup(max_programs=32), lambda n: n)
+    full_s = time.perf_counter() - t0
+    log(f"phase 8 (b): warmup_calibrated ran {n_cal} signatures in "
+        f"{cal_s:.3f} s, warmup(max_programs=32) {n_full} in {full_s:.3f} s; "
+        f"first pass of a fresh engine {cold_qps:.2f} q/s without warmup, "
+        f"{warm_qps:.2f} q/s after warmup_calibrated; {len(live)} live "
+        f"signatures, all among the {len(warmed)} warmed: {live <= warmed}")
+    if not (n_cal == n_warmed == len(warmed) and live and live <= warmed):
+        raise AssertionError("phase 8: a live signature was not warmed")
+    del warm
+
+    # (c) BatchingServer: a burst of the 40 requests on the server's new
+    # threads, the same burst again, then a lone request
+    with BatchingServer(engine, max_wait_ms=10) as server:
+        def burst():
+            futs = [server.submit(r) for r in reqs]
+            return [f.result(timeout=300) for f in futs]
+
+        bursts = []
+        for i in range(2):
+            served, burst_qps = drive(f"BatchingServer burst {i + 1}",
+                                      lambda: timed_qps(burst), n_batches)
+            compare_answers(f"(c) BatchingServer burst {i + 1} vs predict",
+                            served, piped)
+            bursts.append((burst_qps, server.stats()))
+        t0 = time.perf_counter()
+        lone = drive("BatchingServer lone request",
+                     lambda: server.predict_one(reqs[0], timeout=300), 1)
+        lone_ms = (time.perf_counter() - t0) * 1e3
+        stats = server.stats()
+    log(f"phase 8 (c): BatchingServer(max_wait_ms=10) burst 1 "
+        f"{bursts[0][0]:.2f} q/s, stats {json.dumps(bursts[0][1])}; burst 2 "
+        f"{bursts[1][0]:.2f} q/s; lone request {lone_ms:.2f} ms "
+        f"({lone['answer']!r}); stats over all {json.dumps(stats)}")
+    if stats["batches"] != 2 * n_batches + 1:
+        raise AssertionError(f"phase 8: the server ran {stats['batches']} "
+                             f"waves, expected {2 * n_batches + 1}")
+
+    # (d) the num_worker pool on the card: byte-equal batches, equal answers
+    with build_engine("auto", params, num_worker=2)[0] as pooled:
+        got = list(pooled._collated_batches(reqs))
+        want = list(engine._collated_batches(reqs))
+        for (s1, n1, a), (s2, n2, b) in zip(got, want):
+            same = (s1, n1) == (s2, n2) and a[4] == b[4] and all(
+                list(x) == list(y) and all(
+                    x[k].dtype == y[k].dtype and x[k].tobytes() == y[k].tobytes()
+                    for k in x)
+                for x, y in zip(a[:3], b[:3]))
+            if not same:
+                raise AssertionError("phase 8: pooled batches differ from serial")
+        log(f"phase 8 (d): {len(got)} pooled batches byte-equal to serial; "
+            f"num_worker 2 against num_worker 0")
+        _, out = in_turns("num_worker 0", lambda: engine.predict(reqs),
+                          "num_worker 2", lambda: drive(
+                              "num_worker 2 predict",
+                              lambda: pooled.predict(reqs), n_batches))
+    compare_answers("(d) num_worker 2 vs serial", out["num_worker 2"], piped)
+
+    # (e) INT8_BERT: kernel against plain on the int8 encoder
+    fp32_bytes = encoder_bytes(engine)
+    int8 = build_engine("auto", params)[0].quantize()
+    int8_plain = build_engine("plain", params)[0].quantize()
+    got, want = batch_scores(int8, reqs), batch_scores(int8_plain, reqs)
+    diff = max((a - b).abs().max().item() for a, b in zip(got, want))
+    del int8_plain, got, want
+    log("phase 8 (e): int8 against fp32")
+    _, out = in_turns("fp32", lambda: engine.predict(reqs), "int8",
+                      lambda: drive("int8 predict", lambda: int8.predict(reqs),
+                                    n_batches))
+    agree = sum(a["answer"] == b["answer"] for a, b in zip(out["int8"], piped))
+    log(f"phase 8 (e): int8 kernel vs int8 plain max |score diff| "
+        f"{diff:.3e} (tol {SCORE_TOL:g}); answers agree with fp32 on "
+        f"{agree}/{N_REQUESTS}; encoder weights "
+        f"{fp32_bytes} bytes fp32, {encoder_bytes(int8)} int8")
+    if not diff <= SCORE_TOL:
+        raise AssertionError("phase 8: the int8 kernel path and the int8 "
+                             "plain path disagree")
+
+
+def serve_clis(folder, conf_predict, reqs, drive):
+    """Phase 8 (f): ``cli.serve_main`` (fp32 and INT8_BERT) and
+    ``cli.main_test`` under INT8_BERT from phase 6's best checkpoint."""
+    import io
+
+    from ruart_tpu_torch.cli import main as cli_main
+    from ruart_tpu_torch.cli import main_test as cli_main_test
+    from ruart_tpu_torch.cli import serve_main
+
+    n_batches = -(-N_REQUESTS // 16)
+    with open(conf_predict) as f:
+        body = f.read()
+    conf_int8 = conf_predict + "_int8"
+    with open(conf_int8, "w") as f:
+        f.write("INT8_BERT\n" + body)
+    ref = serve_main.build_engine(cli_main.build_config(conf_predict))
+    want = {"fp32": ref.predict(reqs)}
+    want["INT8_BERT"] = ref.quantize().predict(reqs)
+    del ref
+    lines = "".join(json.dumps(r) + "\n" for r in reqs)
+    for mode, conf in (("fp32", conf_predict), ("INT8_BERT", conf_int8)):
+        stdio = sys.stdin, sys.stdout
+        sys.stdin, sys.stdout = io.StringIO(lines), io.StringIO()
+        try:
+            t0 = time.perf_counter()
+            n = drive(f"serve_main {mode}", lambda: serve_main.main(
+                ["--conf_file", conf, "--warmup", "8"]), n_batches)
+            wall = time.perf_counter() - t0
+            out = sys.stdout.getvalue()
+        finally:
+            sys.stdin, sys.stdout = stdio
+        got = [json.loads(line) for line in out.splitlines()]
+        log(f"phase 8 (f): serve_main {mode} --warmup 8 served {n} requests "
+            f"in {wall:.2f} s (engine build and warmup included)")
+        if not n == len(got) == N_REQUESTS:
+            raise AssertionError(f"phase 8: serve_main wrote {len(got)} lines")
+        compare_answers(f"(f) serve_main {mode} vs an engine from the "
+                        f"checkpoint", got, want[mode])
+    drive("main_test INT8_BERT",
+          lambda: cli_main_test.main(["--conf_file", conf_int8]), n_batches)
+    with open(os.path.join(folder, "submission.json")) as f:
+        sub = json.load(f)
+    log(f"phase 8 (f): main_test INT8_BERT wrote {len(sub)} entries")
+    if len(sub) != N_TEST or not all(isinstance(r["answer"], str) for r in sub):
+        raise AssertionError("phase 8: the INT8_BERT submission is wrong")
+
 
 def bound(nbytes: float, flops: float):
     """The least time (ms) the card could take: the larger of the bytes
@@ -803,6 +1051,23 @@ def main() -> int:
         return {"K1": att.attention_rows_cuda.launches,
                 "K3": att.flash_attention_cuda.launches}
 
+    serve_paths = []  # phase 8: (path, launches, batches)
+
+    def drive(label, fn, batches):
+        """Run one serving path with the counts set to 0 just before and
+        read just after; K1 must launch 12 times per batch. ``batches``:
+        a count, or a function of ``fn``'s result."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launched = counts()
+        n = batches(out) if callable(batches) else batches
+        serve_paths.append((label, launched, n))
+        if launched["K1"] < 12 * n:
+            raise AssertionError(f"phase 8: {label} launched K1 "
+                                 f"{launched['K1']} times for {n} batches")
+        return out
+
     t_start = time.time()
     card = card_line()
     log(f"card: {card} ({torch.cuda.get_device_name(0)}, torch "
@@ -990,13 +1255,23 @@ def main() -> int:
             raise AssertionError("prediction ran without the attention kernel")
         log(f"phase 6 ok: median step {step_ms:.2f} ms, {steps_per_s:.3f} steps/s, "
             f"eval {eval_qps:.2f} q/s, peak train memory {peak_train} bytes")
+        del predictor, test_data
+
+        # -- phase 8: the serving stack (main paths 4 and on) ------------------
+        t0 = time.time()
+        serve_stack(params, reqs, results, drive)
+        serve_clis(folder, predict, reqs, drive)
+        for label, launched, n in serve_paths:
+            log(f"  phase 8 path {label}: {n} batches, launches {launched}")
+        log(f"phase 8 ok in {time.time() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+    stack_counts = {k: sum(c[k] for _, c, _ in serve_paths) for k in serve_counts}
     main_path = {k: serve_counts[k] + train_counts[k] + predict_counts[k]
-                 for k in serve_counts}
+                 + stack_counts[k] for k in serve_counts}
     log(f"launches on the main paths: serve {serve_counts}, train "
-        f"{train_counts}, predict {predict_counts}")
+        f"{train_counts}, predict {predict_counts}, serving stack {stack_counts}")
     log(f"total {time.time() - t_start:.1f} s")
     log(card)
     source = "ruart_tpu_torch/csrc/attention.cu"

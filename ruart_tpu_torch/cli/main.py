@@ -51,6 +51,16 @@ def platform_device():
     return os.environ.get("RUART_PLATFORM") or None
 
 
+def apply_runtime_flags(cfg):
+    """Conf-gated process switches of the CLIs: the host pipeline's GC
+    thresholds (``utils.gctune``; ``NO_GC_TUNE`` opts out). The JAX
+    package's other switches (compile cache, platform) have no
+    counterpart: the device comes from :func:`platform_device`."""
+    from ruart_tpu_torch.utils.gctune import tune_gc
+
+    tune_gc(cfg.opt)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="ruart-tpu PyTorch port")
     parser.add_argument("--command", default="train", help="Command: train")
@@ -60,6 +70,7 @@ def main(argv=None):
 
     setup_logging(args.log_file)
     cfg = build_config(args.conf_file)
+    apply_runtime_flags(cfg)
 
     from ruart_tpu_torch.train.trainer import Trainer
 

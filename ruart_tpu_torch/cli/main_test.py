@@ -9,7 +9,12 @@ from __future__ import annotations
 
 import argparse
 
-from ruart_tpu_torch.cli.main import build_config, platform_device, setup_logging
+from ruart_tpu_torch.cli.main import (
+    apply_runtime_flags,
+    build_config,
+    platform_device,
+    setup_logging,
+)
 
 
 def main(argv=None):
@@ -21,6 +26,7 @@ def main(argv=None):
 
     setup_logging(args.log_file)
     cfg = build_config(args.conf_file)
+    apply_runtime_flags(cfg)
 
     from ruart_tpu_torch.train.trainer import Trainer
 

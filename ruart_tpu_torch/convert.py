@@ -5,6 +5,8 @@ The port names its modules after the flax tree, so each flax leaf maps to
 one state-dict entry by its path ('/' becomes '.') and a leaf rename:
 
 * Dense ``kernel`` [in, out]   -> Linear ``weight`` [out, in] (transposed)
+* QuantDense ``kernel_q`` [in, out] / ``scale`` / ``bias`` -> QuantLinear
+  ``weight_q`` [out, in] (transposed) / ``scale`` / ``bias`` (INT8_BERT)
 * Embed ``embedding``          -> Embedding ``weight``
 * LayerNorm ``scale``          -> LayerNorm ``weight``
 * ``rnn_<i>/fwd|bwd/w_ih`` ... -> ``rnn_<i>.weight_ih_l0[_reverse]`` ...
@@ -22,6 +24,8 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from ruart_tpu_torch.ops.quant import QuantLinear
 
 _LSTM_LEAVES = {
     "w_ih": "weight_ih_l0", "w_hh": "weight_hh_l0",
@@ -44,7 +48,9 @@ def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if set(tree) == {"params"}:
         tree = tree["params"]
     out: Dict[str, torch.Tensor] = {}
-    for path, value in _leaves(tree):
+    leaves = list(_leaves(tree))
+    quant = {path[:-1] for path, _ in leaves if path[-1] == "kernel_q"}
+    for path, value in leaves:
         arr = np.asarray(value)
         *mods, leaf = path
         if leaf in _LSTM_LEAVES:
@@ -52,6 +58,10 @@ def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             name = _LSTM_LEAVES[leaf] + ("_reverse" if direction == "bwd" else "")
         elif leaf == "kernel":
             name, arr = "weight", arr.T
+        elif leaf == "kernel_q":
+            name, arr = "weight_q", arr.T
+        elif leaf == "scale" and path[:-1] in quant:
+            name = "scale"  # a QuantDense's per-channel scale
         elif leaf in ("embedding", "scale"):
             name = "weight"
         else:
@@ -64,8 +74,9 @@ def to_jax_params(model: nn.Module) -> Dict[str, Any]:
     """The port's parameters as a flax tree ``{'params': {...}}`` of numpy
     arrays, under the flax paths and layouts (the inverse of
     :func:`from_jax_params`). The module type decides each leaf's flax
-    name: Linear ``weight`` -> Dense ``kernel`` (transposed), Embedding
-    ``weight`` -> ``embedding``, LayerNorm ``weight`` -> ``scale``, LSTM
+    name: Linear ``weight`` -> Dense ``kernel`` (transposed), QuantLinear
+    ``weight_q`` -> ``kernel_q`` (transposed), Embedding ``weight`` ->
+    ``embedding``, LayerNorm ``weight`` -> ``scale``, LSTM
     ``*_l0[_reverse]`` -> ``fwd|bwd/w_ih`` ..."""
     lstm = {v: k for k, v in _LSTM_LEAVES.items()}
     tree: Dict[str, Any] = {}
@@ -80,6 +91,8 @@ def to_jax_params(model: nn.Module) -> Dict[str, Any]:
                 path = [*mods, direction, lstm[base]]
             elif isinstance(mod, nn.Linear) and leaf == "weight":
                 path, arr = [*mods, "kernel"], arr.T
+            elif isinstance(mod, QuantLinear) and leaf == "weight_q":
+                path, arr = [*mods, "kernel_q"], arr.T
             elif isinstance(mod, nn.Embedding):
                 path = [*mods, "embedding"]
             elif isinstance(mod, nn.LayerNorm) and leaf == "weight":

@@ -23,6 +23,18 @@ from ruart_tpu_torch.core.config import Config
 
 log = logging.getLogger(__name__)
 
+# every batch key the dedup/packing paths can attach to a candidate block
+# (serve-time dense fallbacks strip exactly this set)
+DEDUP_KEYS = (
+    "bert_unique", "bert_inverse", "bert_unique_offsets",
+    "bert_packed", "bert_packed_seg", "bert_packed_pos", "bert_unpack",
+)
+
+# candidate-row compaction key (`cand_compact 1`, see _add_compact):
+# independent of the dedup/pack keys — a block can carry any combination
+COMPACT_KEYS = ("cand_sel",)
+
+
 def slim_block(block):
     """Drop grid keys whose VALUES the model provably never reads once the
     dedup/packed encoder tables are attached (`h2d_slim 1`, default on):
@@ -542,6 +554,20 @@ class Collator:
         if frac is None:
             frac = self.dedup_frac
         return max(64, int(np.ceil(frac * B * max_num / 64.0)) * 64)
+
+    def dedup_sizes(self, B: int, max_num: int) -> Tuple[int, ...]:
+        """Every unique-table ROW count this collator can emit for a
+        [B, max_num] block — the bucket ladder under the cap, or () when
+        dedup can never attach (off, or the cap can't beat the dense
+        shape). Serving warmup runs these crossed with
+        ``dedup_len_ladder`` plus the dense fallback
+        (`serve.InferenceEngine.warmup`)."""
+        if self.dedup_frac <= 0:
+            return ()
+        cap = self.dedup_cap(B, max_num)
+        if cap >= B * max_num and self.dedup_frac < 1.0:
+            return ()
+        return self._dedup_ladder(cap)
 
     def _dedup_ladder(self, cap: int) -> Tuple[int, ...]:
         """Unique-table sizes to pad to, ascending, largest = cap. With

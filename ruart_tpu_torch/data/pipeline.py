@@ -3,8 +3,9 @@
 Port of ``ruart_tpu/data/pipeline.py``:
 
 * :func:`batch_iterator` — collated numpy batches, one per sampler index
-  batch, built serially. The JAX package's ``num_worker`` fork pool is not
-  ported: ``num_workers > 0`` raises NotImplementedError.
+  batch; ``num_workers > 0`` (the ``num_worker`` conf key) builds the
+  items in a fork pool with one batch of lookahead (a thread pool where
+  fork is missing).
 * :func:`prefetch` — a producer thread fills a bounded queue; an error in
   the producer is raised again in the consumer.
 * :func:`host_batch` / :func:`device_put_batch` — the port's put, in two
@@ -22,8 +23,10 @@ Port of ``ruart_tpu/data/pipeline.py``:
 
 from __future__ import annotations
 
+import multiprocessing
 import queue
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, Iterable, Iterator, Mapping, Optional
 
 import numpy as np
@@ -35,20 +38,82 @@ from ruart_tpu_torch.data.sampler import VQASampler
 from ruart_tpu_torch.models.fusion.spec import ModelSpec
 
 
+# fork-inherited dataset for the `num_worker` process pool: set in the
+# parent immediately before Pool() forks, so workers get the dataset by
+# copy-on-write page sharing instead of a pickled copy each (the reference's
+# torch DataLoader workers do the same, `SDNetTrainer.py:100-106`). Workers
+# run only python/numpy item building: a forked child must never call a
+# torch op (torch's intra-op thread pool and CUDA do not survive a fork).
+_FORK_DATASET: Optional[VQADataset] = None
+
+
+def _fork_build_items(idx_chunk):
+    ds = _FORK_DATASET
+    return [ds[i] for i in idx_chunk]
+
+
+def _chunk(seq, n: int):
+    """Split ``seq`` into <= n contiguous chunks of near-equal size."""
+    seq = list(seq)
+    n = max(1, min(n, len(seq)))
+    step = -(-len(seq) // n)
+    return [seq[i: i + step] for i in range(0, len(seq), step)]
+
+
 def batch_iterator(
     dataset: VQADataset,
     sampler: VQASampler,
     collator: Collator,
     num_workers: int = 0,
 ):
-    """Yield collated numpy batches for each sampler index batch."""
-    if num_workers and num_workers > 0:
-        raise NotImplementedError(
-            f"num_worker {num_workers}: the item-building worker pool is not "
-            "ported; use num_worker 0"
+    """Yield collated numpy batches for each sampler index batch.
+
+    ``num_workers > 0`` builds items in a fork-based PROCESS pool with
+    one-batch lookahead — batch k+1's items build in the workers while the
+    parent collates batch k and the device runs. Item building is pure
+    python/numpy over preprocessed data, so worker-built items are exactly
+    the serial ones. Falls back to an in-process thread pool when fork is
+    unavailable."""
+    if not num_workers or num_workers <= 0:
+        for idx_batch in sampler:
+            yield collator([dataset[i] for i in idx_batch])
+        return
+
+    if "fork" not in multiprocessing.get_all_start_methods():
+        pool = ThreadPoolExecutor(max_workers=num_workers)
+        try:
+            for idx_batch in sampler:
+                items = list(pool.map(dataset.__getitem__, idx_batch))
+                yield collator(items)
+        finally:
+            pool.shutdown(wait=False)
+        return
+
+    global _FORK_DATASET
+    ctx = multiprocessing.get_context("fork")
+    # bound for the pool's whole life, not just the first fork: the pool
+    # forks a replacement whenever a worker dies
+    prev, _FORK_DATASET = _FORK_DATASET, dataset
+    pool = ctx.Pool(processes=num_workers)
+    try:
+        it = iter(sampler)
+        nxt = next(it, None)
+        pending = (
+            pool.map_async(_fork_build_items, _chunk(nxt, num_workers))
+            if nxt is not None else None
         )
-    for idx_batch in sampler:
-        yield collator([dataset[i] for i in idx_batch])
+        while pending is not None:
+            chunks = pending.get()
+            nxt = next(it, None)
+            pending = (
+                pool.map_async(_fork_build_items, _chunk(nxt, num_workers))
+                if nxt is not None else None
+            )
+            yield collator([item for part in chunks for item in part])
+    finally:
+        pool.terminate()
+        pool.join()
+        _FORK_DATASET = prev
 
 
 def prefetch(
@@ -163,6 +228,28 @@ def put_block(block: Mapping[str, torch.Tensor],
             moved[id(t)] = d
         out[k] = d
     return out
+
+
+def fetch_async(*tensors: torch.Tensor) -> Callable[[], tuple]:
+    """Start copying ``tensors`` to the host right behind the work that
+    makes them; returns a function that waits for those copies alone and
+    gives the host tensors. A one-batch-behind drain needs this on a card:
+    a blocking ``.cpu()`` of batch N, issued after batch N+1 is enqueued,
+    queues on the same stream behind N+1's forward and waits for it too.
+    CUDA tensors go to pinned memory on the current stream, then an event;
+    CPU tensors come back as they are."""
+    if tensors[0].device.type != "cuda":
+        return lambda: tensors
+    host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                 .copy_(t, non_blocking=True) for t in tensors)
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait():
+        done.synchronize()
+        return host
+
+    return wait
 
 
 def device_put_batch(batch, device: torch.device):

@@ -23,6 +23,7 @@ from ruart_tpu_torch.data.dataset import VQADataset
 from ruart_tpu_torch.data.pipeline import (
     batch_iterator,
     device_put_batch,
+    fetch_async,
     host_batch,
     prefetch,
 )
@@ -65,9 +66,10 @@ def evaluate(
 
     def drain(pending):
         nonlocal anls_sum, acc_sum, loss_sum, n_batches
-        scores, loss, num, extra = pending
+        fetch, num, extra = pending
+        scores, loss = fetch()
         _res, _save, _anls, _acc = decode_batch(
-            scores.cpu().numpy(), extra, num.numpy(),
+            scores.numpy(), extra, num.numpy(),
             fixed_answers, yesno, label_no_answer,
         )
         res.extend(_res)
@@ -78,16 +80,17 @@ def evaluate(
         n_batches += 1
 
     # software pipeline: enqueue batch N+1 BEFORE fetching/decoding batch
-    # N, so the device does not idle through the fetch + decode
+    # N, so the device does not idle through the fetch + decode; the fetch
+    # of N waits for N alone (fetch_async)
     it = batch_iterator(dataset, sampler, collator, num_workers=num_workers)
     pending = None
     for host in prefetch(it, size=2,
                          host_put=lambda b: host_batch(b, spec, slim, pin)):
         q, ocr, od, gt, extra = device_put_batch(host, device)
-        scores, loss = eval_step(q, ocr, od, gt)
+        fetch = fetch_async(*eval_step(q, ocr, od, gt))
         if pending is not None:
             drain(pending)
-        pending = (scores, loss, host[1]["num"], extra)
+        pending = (fetch, host[1]["num"], extra)
     if pending is not None:
         drain(pending)
 

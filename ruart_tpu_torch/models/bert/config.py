@@ -2,8 +2,9 @@
 
 Field names match the Google/HF ``bert_config.json`` schema (reference
 `Models/Bert/modeling.py:67-153`). Copy of ``ruart_tpu/models/bert/config.py``
-without the multi-device mesh, the compute dtype and the int8 mode: the
-port's encoder runs in fp32 only."""
+without the multi-device mesh and the compute dtype: the port's encoder
+computes in fp32, with fp32 or (``quant='int8'``) weight-only int8
+projection weights."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import dataclasses
 import json
 
 ATTENTION_IMPLS = ("auto", "plain")
+QUANT_MODES = ("none", "int8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,12 +33,17 @@ class BertConfig:
     # plain PyTorch version for CPU tensors (ops/attention.py). 'plain'
     # forces the plain version on any device — the comparison arm only.
     attention_impl: str = "auto"
+    # 'int8': weight-only int8 projection/FFN layers (ops/quant.py; the
+    # INT8_BERT serving mode), weights from quant.quantize_bert_params
+    quant: str = "none"
 
     def __post_init__(self):
         if self.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(
                 f"attention_impl {self.attention_impl!r} not in {ATTENTION_IMPLS}"
             )
+        if self.quant not in QUANT_MODES:
+            raise ValueError(f"quant {self.quant!r} not in {QUANT_MODES}")
 
     @classmethod
     def large_uncased(cls, **kw) -> "BertConfig":

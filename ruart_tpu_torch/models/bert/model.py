@@ -12,6 +12,8 @@ The 2018 BERT architecture the reference vendors
   version (``attention_impl='plain'`` forces the plain version anywhere);
 * ``stop_layer_gradients`` (LOCK_BERT) cuts every layer's output from the
   graph while the combine weights stay in it;
+* ``quant='int8'`` builds the six projection/FFN layers of each encoder
+  layer as weight-only int8 ``ops.quant.QuantLinear`` (INT8_BERT);
 * subword→word pooling is a batched segment-mean matmul
   (:func:`subword_to_word_pooling`).
 
@@ -32,8 +34,18 @@ from torch import nn
 
 from ruart_tpu_torch.models.bert.config import BertConfig
 from ruart_tpu_torch.ops.attention import attention_rows_plain, fused_attention
+from ruart_tpu_torch.ops.quant import QuantLinear
 
 ATTN_MASK_BIAS = -10000.0  # reference `modeling.py:583`
+
+
+def _dense(c: BertConfig, in_features: int, out_features: int) -> nn.Module:
+    """Linear factory for the encoder's projection/FFN layers: ``nn.Linear``
+    normally, weight-only-int8 :class:`QuantLinear` when ``c.quant ==
+    'int8'`` (weights converted by ``ops.quant.quantize_bert_params``)."""
+    if c.quant == "int8":
+        return QuantLinear(in_features, out_features)
+    return nn.Linear(in_features, out_features)
 
 
 class BertEmbeddings(nn.Module):
@@ -69,9 +81,9 @@ class BertSelfAttention(nn.Module):
         D = c.hidden_size
         self.heads = c.num_attention_heads
         self.impl = c.attention_impl
-        self.query = nn.Linear(D, D)
-        self.key = nn.Linear(D, D)
-        self.value = nn.Linear(D, D)
+        self.query = _dense(c, D, D)
+        self.key = _dense(c, D, D)
+        self.value = _dense(c, D, D)
 
     def forward(self, hidden, bias):
         """``bias``: float32 [B, L] key bias or [B, L, L] per-query bias."""
@@ -85,10 +97,10 @@ class BertLayer(nn.Module):
         super().__init__()
         D = c.hidden_size
         self.attention_self = BertSelfAttention(c)
-        self.attention_output_dense = nn.Linear(D, D)
+        self.attention_output_dense = _dense(c, D, D)
         self.attention_output_LayerNorm = nn.LayerNorm(D, eps=c.layer_norm_eps)
-        self.intermediate_dense = nn.Linear(D, c.intermediate_size)
-        self.output_dense = nn.Linear(c.intermediate_size, D)
+        self.intermediate_dense = _dense(c, D, c.intermediate_size)
+        self.output_dense = _dense(c, c.intermediate_size, D)
         self.output_LayerNorm = nn.LayerNorm(D, eps=c.layer_norm_eps)
 
     def forward(self, hidden, bias):

@@ -3,8 +3,9 @@
 A frozen snapshot of every conf-derived flag/size the fusion network
 needs. Built once from a :class:`ruart_tpu_torch.core.config.Config`; the
 raw opt dict never reaches the model. Copy of
-``ruart_tpu/models/fusion/spec.py``; the port's encoder is fp32-only, so
-the ``BF16`` and ``INT8_BERT`` conf keys raise."""
+``ruart_tpu/models/fusion/spec.py``. ``INT8_BERT`` selects the weight-only
+int8 encoder (``BertConfig.quant``); the port's encoder computes in fp32
+only, so the ``BF16`` conf key raises."""
 
 from __future__ import annotations
 
@@ -88,11 +89,15 @@ class ModelSpec:
             bert_config = (
                 BertConfig.large_uncased() if "BERT_LARGE" in opt else BertConfig()
             )
-        for key in ("BF16", "INT8_BERT"):
-            if use_bert and key in opt:
-                raise NotImplementedError(
-                    f"conf key {key}: the port's BERT encoder is fp32-only"
-                )
+        if use_bert and "BF16" in opt:
+            raise NotImplementedError(
+                "conf key BF16: the port's BERT encoder computes in fp32 only"
+            )
+        # INT8_BERT conf flag: weight-only int8 encoder (frozen-BERT serving
+        # mode, no reference equivalent — ops/quant.py). Weights must go
+        # through quantize_bert_params after load.
+        if use_bert and "INT8_BERT" in opt and bert_config.quant != "int8":
+            bert_config = dataclasses.replace(bert_config, quant="int8")
         return cls(
             q_embedding=tuple(cfg.q_embedding),
             ocr_embedding=tuple(cfg.ocr_embedding),

@@ -10,15 +10,19 @@ sampler-offset resume, and ``predict_for_test``, which writes
 
 The trainer runs on the CUDA card unless the caller passes ``device="cpu"``
 (the CLIs do so under ``RUART_PLATFORM=cpu``); without a card it raises.
-These JAX branches are not ported and raise NotImplementedError naming
-their conf key: mesh and multi-host execution (``coordinator_address``,
-``tensor_parallel``, several visible cards without ``no_mesh``), the
-``DEBUG`` data scan, ``INT8_BERT`` evaluation (refused by ``ModelSpec``),
-``fixed_answers`` and ``img_feature``.
+``INT8_BERT`` is an inference-time transform, as in the JAX package: the
+stateful model, its checkpoints and training stay fp32, and
+``predict_for_test`` evaluates a weight-only int8 copy of the loaded
+weights. These JAX branches are not ported and raise NotImplementedError
+naming their conf key: mesh and multi-host execution
+(``coordinator_address``, ``tensor_parallel``, several visible cards
+without ``no_mesh``), the ``DEBUG`` data scan, ``BF16`` (refused by
+``ModelSpec``), ``fixed_answers`` and ``img_feature``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -46,6 +50,7 @@ from ruart_tpu_torch.eval.evaluator import evaluate, write_submission
 from ruart_tpu_torch.models.bert.config import BertConfig
 from ruart_tpu_torch.models.fusion.model import RUArtModel, install_embeddings
 from ruart_tpu_torch.models.fusion.spec import ModelSpec
+from ruart_tpu_torch.ops.quant import quantize_bert_params
 from ruart_tpu_torch.serve import resolve_device
 from ruart_tpu_torch.text.wordpiece import WordPieceTokenizer, build_demo_vocab
 from ruart_tpu_torch.train import checkpoint as ckpt
@@ -147,12 +152,20 @@ class Trainer:
         if self.bert_config is not None and self.bert_config.vocab_size < len(
             self.tokenizer.vocab
         ):
-            import dataclasses
-
             self.bert_config = dataclasses.replace(
                 self.bert_config, vocab_size=len(self.tokenizer.vocab)
             )
         self.spec = ModelSpec.from_config(cfg, self.bert_config)
+        # INT8_BERT is an inference-time transform: the stateful model
+        # (init / checkpoints / training) stays fp32, and predict_for_test
+        # quantizes the loaded weights into a separate eval model
+        # (_apply_int8_eval), so checkpoints never hold int8 weights
+        self._int8_eval = (self.spec.bert is not None
+                           and self.spec.bert.quant == "int8")
+        if self._int8_eval:
+            self.spec = dataclasses.replace(
+                self.spec, bert=dataclasses.replace(self.spec.bert, quant="none")
+            )
         # random init on the host from a seeded generator (the same weights
         # on every device), then the pretrained tables
         model = RUArtModel(self.spec).init_weights(
@@ -388,8 +401,23 @@ class Trainer:
         model_path = self._resume_path()
         if model_path is not None:
             self.load_model(model_path, with_optimizer=False)
+        if self._int8_eval:
+            self._apply_int8_eval()
         test_data = self._dataset(test_raw, "test")
         return self.run_eval(test_data, 0, mode="test")
+
+    def _apply_int8_eval(self):
+        """Swap the eval step to a weight-only-int8 copy of the encoder
+        (INT8_BERT). Runs after the checkpoint load, so the int8 weights
+        reflect the loaded fp32 ones; the stateful fp32 model is kept."""
+        qspec = dataclasses.replace(
+            self.spec, bert=dataclasses.replace(self.spec.bert, quant="int8")
+        )
+        with self.device:
+            qmodel = RUArtModel(qspec)
+        qmodel.load_state_dict(quantize_bert_params(self.model.state_dict()))
+        self.eval_step = make_eval_step(qmodel, self.loss_fn)
+        log.info("INT8_BERT: encoder Linear layers quantized for inference")
 
 
 def _json_safe(v) -> bool:

@@ -57,9 +57,17 @@ def test_prefetch_order_and_error():
     assert got == [1]
 
 
-def test_worker_pool_is_refused():
-    with pytest.raises(NotImplementedError, match="num_worker"):
-        next(pipeline.batch_iterator(None, [[0]], None, num_workers=2))
+def test_worker_pool_is_refused(monkeypatch):
+    """``num_worker`` is ported and no longer refused: its batches are the
+    serial ones. The fork pool is held to serial in a child process
+    (test_torch_port_serve.py); here the thread pool, where fork is
+    missing, on a plain list."""
+    monkeypatch.setattr(pipeline.multiprocessing, "get_all_start_methods",
+                        lambda: ["spawn"])
+    data, sampler = [f"item{i}" for i in range(5)], [[3, 0], [4, 1], [2]]
+    want = list(pipeline.batch_iterator(data, sampler, tuple))
+    assert want == [("item3", "item0"), ("item4", "item1"), ("item2",)]
+    assert list(pipeline.batch_iterator(data, sampler, tuple, num_workers=2)) == want
 
 
 def _spec():

@@ -98,6 +98,12 @@ def test_unported_conf_branches_raise(key, value):
 
 @pytest.mark.parametrize("key", ["BF16", "INT8_BERT"])
 def test_reduced_precision_conf_keys_raise(key):
+    """BF16 is refused by name; INT8_BERT is ported and selects the
+    weight-only int8 encoder instead."""
+    if key == "INT8_BERT":
+        assert _port_spec(INT8_BERT=True).bert.quant == "int8"
+        assert _port_spec().bert.quant == "none"
+        return
     with pytest.raises(NotImplementedError, match=key):
         _port_spec(**{key: True})
 
