@@ -89,6 +89,24 @@ non-zero when there is none, or when any phase fails:
    runs with the launch counts set to 0 and must launch K1 12 times per
    batch (once per layer: the question and candidate rows share one
    encoder call).
+9. The model's other conf branches at the width of phase 2. (a) ``BF16``
+   serving: the 40 requests through ``predict`` with the kernel, with
+   ``attention_impl='plain'`` and in fp32; kernel-vs-plain bf16 scores
+   must lie no further apart than plain bf16 lies from fp32, and the two
+   bf16 runs must agree on at least 38 of the 40 answers; q/s of bf16 and
+   fp32 in turns (for information); K1 bf16 timed at the serving shape
+   beside SDPA in bf16 and its bound (bytes, or one-pass TF32 products at
+   495 TFLOP/s: bf16 operands are exact in TF32). (b) ``BF16`` with
+   ``INT8_BERT``: one pass, finite scores. (c) ``BF16`` training through
+   ``cli.main``: 10 steps of the shipped train conf at batch 16 in phase
+   6's folder, every loss finite and K1 in bf16 in every step; then one
+   step with ``LOCK_BERT`` off, whose encoder gradients must be finite and
+   not all zero (the bf16 backward through the ``autograd.Function``).
+   (d) One full-width forward each of ``img_feature replace_od`` (36 x 2048
+   synthetic region features), ``fixed_answers`` (a 4,000-line synthetic
+   answer file) and ``ES_using_way post_process``, kernel against plain
+   path: scores within 1e-4. Every path runs with the counts set to 0 and
+   must launch K1 12 times per batch or step, in bf16 where ``BF16`` is on.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.
@@ -112,6 +130,8 @@ H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 # fp32-accurate products on the tensor cores: 3xTF32, a third of the data
 # sheet's 495 TFLOP/s TF32 (fp32 outside the tensor cores is 67 TFLOP/s)
 H100_TF32X3_FLOP_PER_S = 495e12 / 3
+# bf16 operands are exact in TF32: one product per pair at the TF32 rate
+H100_TF32_FLOP_PER_S = 495e12
 COLD_BYTES = 100 * 10**6        # inputs rotated through per timing (L2: 50 MB)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SCORE_TOL = 1e-4
@@ -126,6 +146,8 @@ K2_SHAPE = (64, 32, 16, 48, True)
 N_TRAIN, N_VAL, N_TEST = 320, 32, 40
 UNIQUE_ES = 15   # ES words per training item made unique: ~4,900 words
 LR = 1e-3
+N_FIXED = 4000   # the reference's fixed_answers_4000.txt
+IMG = (36, 2048)  # bottom-up regions x feature width
 
 
 def log(*args):
@@ -223,7 +245,7 @@ def check_kernel(att):
     """Phase 1: the kernel against its plain version. Returns the worst
     fp32 abs error of the shapes the JAX package sends to K1
     (``_packed_kernel``: dh divides 128 and heads fill the bundles) and of
-    those it sends to K2."""
+    those it sends to K2, and the worst bf16 error of K1's shapes."""
     import torch
 
     cases = [  # (rows, L, heads, dh): serving lengths, then edges of the tiling
@@ -232,7 +254,7 @@ def check_kernel(att):
         (16, 128, 12, 64), (16, 32, 4, 8), (16, 50, 4, 128), (4, 130, 2, 128),
     ]
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    by_kernel = {"K1": 0.0, "K2": 0.0}
+    by_kernel = {"K1": 0.0, "K2": 0.0, "K1 bf16": 0.0}
 
     def check(B, L, H, dh, dtype, bias_2d, seed, on_grid, shift=False):
         # an all-pad query row compares fp32 roundings of score - 10000:
@@ -250,17 +272,23 @@ def check_kernel(att):
         name = str(dtype).split(".")[-1]
         form = "segment [B,L,L]" if bias_2d else "key [B,L]"
         ok = math.isfinite(err) and err <= TOL[name]
+        # in bf16 one rounding step of the output is the error's floor: the
+        # share of outputs that differ says how often the two round apart
+        differ = (f", {(got != want).float().mean().item():.3%} of outputs "
+                  f"differ" if dtype == torch.bfloat16 else "")
         log(f"kernel check B={B} L={L} H={H} dh={dh} {name} {form}"
             f"{'' if on_grid else ' off-grid'}{' unaligned' if shift else ''}"
             f": max |kernel - plain| = "
-            f"{err:.3e} (tol {TOL[name]:g}){'' if ok else '  FAIL'}")
+            f"{err:.3e} (tol {TOL[name]:g}){differ}{'' if ok else '  FAIL'}")
         if not ok:
             raise AssertionError("attention kernel disagrees with its plain "
                                  "version")
         worst[name] = max(worst[name], err)
-        if name == "float32":
-            packed = 128 % dh == 0 and H % (128 // dh) == 0
-            kernel = "K1" if packed else "K2"
+        packed = 128 % dh == 0 and H % (128 // dh) == 0
+        kernel = "K1" if packed else "K2"
+        if name == "bfloat16":
+            kernel = "K1 bf16" if packed else None
+        if kernel:
             by_kernel[kernel] = max(by_kernel[kernel], err)
 
     for i, (B, L, H, dh) in enumerate(cases):
@@ -313,12 +341,13 @@ def n_cold_sets(set_bytes: int) -> int:
     return COLD_BYTES // set_bytes + 1
 
 
-def timed(kernel, plain, library, sets, nbytes, flops):
+def timed(kernel, plain, library, sets, nbytes, flops,
+          flop_rate=H100_TF32X3_FLOP_PER_S):
     """(kernel, plain, library ms cold in L2, bound ms, bound_by, kernel ms
     hot in L2 as PR 2 timed it) for three functions of the same inputs."""
     ms, plain_ms, lib_ms = (cold_ms(fn, sets) for fn in (kernel, plain, library))
     hot = cuda_ms(lambda: kernel(*sets[0]))
-    return (ms, plain_ms, lib_ms) + bound(nbytes, flops) + (hot,)
+    return (ms, plain_ms, lib_ms) + bound(nbytes, flops, flop_rate) + (hot,)
 
 
 def log_timing(name, shape, r):
@@ -330,26 +359,33 @@ def log_timing(name, shape, r):
         f"timing, host launches) {hot:.4f} ms")
 
 
-def time_kernel(att, shape):
+def time_kernel(att, shape, dtype_name="float32"):
     """Kernel, plain and SDPA times (ms) at one (rows, L, heads, dh,
-    segment-bias) shape, plus the card's bound for that work."""
+    segment-bias) shape in fp32 or bf16 inputs, plus the card's bound for
+    that work: bytes (q, k, v and the output in the input type, the fp32
+    bias) or products (3xTF32 for fp32, one-pass TF32 for bf16). SDPA gets
+    the bias in the input type, as it requires."""
     import torch
     import torch.nn.functional as F
 
+    dtype = getattr(torch, dtype_name)
     B, L, H, dh, bias_2d = shape
-    one = make_inputs(B, L, H, dh, torch.float32, bias_2d, 7)
+    one = make_inputs(B, L, H, dh, dtype, bias_2d, 7)
     nbytes = 4 * one[0].numel() * one[0].element_size() + one[3].numel() * 4
-    sets = [one] + [make_inputs(B, L, H, dh, torch.float32, bias_2d, 7 + i)
+    sets = [one] + [make_inputs(B, L, H, dh, dtype, bias_2d, 7 + i)
                     for i in range(1, n_cold_sets(nbytes))]
 
     def sdpa(q, k, v, bias):
         qh, kh, vh = (t.view(B, L, H, dh).transpose(1, 2) for t in (q, k, v))
         mask = bias[:, None] if bias_2d else bias[:, None, None, :]
-        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+        return F.scaled_dot_product_attention(qh, kh, vh,
+                                              attn_mask=mask.to(dtype))
 
+    rate = H100_TF32_FLOP_PER_S if dtype == torch.bfloat16 else \
+        H100_TF32X3_FLOP_PER_S
     return timed(lambda *x: att.attention_rows_cuda(*x, H),
                  lambda *x: att.attention_rows_plain(*x, H), sdpa, sets,
-                 nbytes, 4 * B * H * L * L * dh)
+                 nbytes, 4 * B * H * L * L * dh, rate)
 
 
 def build_engine(attention_impl, params=None, **opts):
@@ -431,14 +467,23 @@ def where_the_time_goes(engine, reqs):
     profile_device(device_pass, "serving pass")
 
 
-def batch_scores(engine, reqs):
+def batch_scores(engine, reqs, batches=None):
+    """The model's scores, one tensor per batch, on ``reqs`` collated by
+    the engine or on ``batches`` of (q, ocr, od) host blocks."""
     import torch
 
+    if batches is None:
+        batches = [b[:3] for _, _, b in engine._collated_batches(reqs)]
     out = []
-    for _, _, (q, ocr, od, _gt, _extra) in engine._collated_batches(reqs):
+    for q, ocr, od in batches:
         with torch.inference_mode():
             out.append(engine.model(*(engine.to_device(b) for b in (q, ocr, od))))
     return out
+
+
+def max_diff(a, b) -> float:
+    """Largest |a - b| over two lists of tensors."""
+    return max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
 
 
 def serial_predict(engine, reqs):
@@ -605,9 +650,8 @@ def serve_stack(params, reqs, phase2, drive):
     fp32_bytes = encoder_bytes(engine)
     int8 = build_engine("auto", params)[0].quantize()
     int8_plain = build_engine("plain", params)[0].quantize()
-    got, want = batch_scores(int8, reqs), batch_scores(int8_plain, reqs)
-    diff = max((a - b).abs().max().item() for a, b in zip(got, want))
-    del int8_plain, got, want
+    diff = max_diff(batch_scores(int8, reqs), batch_scores(int8_plain, reqs))
+    del int8_plain
     log("phase 8 (e): int8 against fp32")
     _, out = in_turns("fp32", lambda: engine.predict(reqs), "int8",
                       lambda: drive("int8 predict", lambda: int8.predict(reqs),
@@ -669,12 +713,13 @@ def serve_clis(folder, conf_predict, reqs, drive):
         raise AssertionError("phase 8: the INT8_BERT submission is wrong")
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flop_rate=H100_TF32X3_FLOP_PER_S):
     """The least time (ms) the card could take: the larger of the bytes
-    over its memory rate and the fp32 operations over the fastest
-    fp32-accurate rate it has (3xTF32 on the tensor cores)."""
+    over its memory rate and the operations over ``flop_rate`` (by
+    default the fastest fp32-accurate rate it has, 3xTF32 on the tensor
+    cores)."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_TF32X3_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -876,7 +921,8 @@ def profile_device(fn, label: str):
                   reverse=True)[:8]
     busy = sum(us for us, _, _ in kernels)
     log(f"profile {label}: device busy {busy / 1e3:.3f} ms of "
-        f"{wall_us / 1e3:.3f} ms wall ({100 * busy / wall_us:.1f}%, profiler on)")
+        f"{wall_us / 1e3:.3f} ms wall ({100 * busy / wall_us:.1f}%, profiler on), "
+        f"{sum(n for _, n, _ in kernels)} kernels and copies")
     for us, count, key in sorted(kernels, reverse=True)[:10]:
         log(f"  {us / 1e3:9.3f} ms {100 * us / busy:5.1f}%  x{count:<5d} "
             f"{key[:90]}")
@@ -898,9 +944,11 @@ def run_training(att, conf: str):
         step = factory(*args, **kwargs)
 
         def recorded(state, q, ocr, od, gt):
-            before = att.attention_rows_cuda.launches
+            k1 = att.attention_rows_cuda
+            before = k1.launches, k1.bf16_launches
             state, loss = step(state, q, ocr, od, gt)
-            steps.append((att.attention_rows_cuda.launches - before, loss))
+            steps.append((k1.launches - before[0],
+                          k1.bf16_launches - before[1], loss))
             return state, loss
 
         return recorded
@@ -1026,6 +1074,161 @@ def compare_plain_step(att, trainer, batch):
     return rel, worst
 
 
+def bf16_serving(params, reqs, drive):
+    """Phase 9 (a), (b): BF16 serving against its plain path and fp32."""
+    n_batches = -(-N_REQUESTS // 16)
+    engine, _ = build_engine("auto", params, BF16=True)
+    plain, _ = build_engine("plain", params, BF16=True)
+    fp32, _ = build_engine("auto", params)
+    got = drive("(a) BF16 predict, kernel", lambda: engine.predict(reqs),
+                n_batches, bf16=True, exact=True)
+    want = drive("(a) BF16 predict, plain", lambda: plain.predict(reqs), 0,
+                 exact=True)
+    ref = drive("(a) fp32 predict", lambda: fp32.predict(reqs), n_batches,
+                exact=True)
+    batches = [b[:3] for _, _, b in engine._collated_batches(reqs)]
+    s_kernel, s_plain, s_fp32 = (batch_scores(e, reqs, batches)
+                                 for e in (engine, plain, fp32))
+    d_kp, d_pf, d_kf = (max_diff(s_kernel, s_plain), max_diff(s_plain, s_fp32),
+                        max_diff(s_kernel, s_fp32))
+    agree = sum(a["answer"] == b["answer"] for a, b in zip(got, want))
+    agree32 = sum(a["answer"] == b["answer"] for a, b in zip(got, ref))
+    log(f"phase 9 (a): max |score| kernel bf16 - plain bf16 {d_kp:.3e}, "
+        f"plain bf16 - fp32 {d_pf:.3e}, kernel bf16 - fp32 {d_kf:.3e}; "
+        f"answers kernel bf16 = plain bf16 on {agree}/{N_REQUESTS}, "
+        f"kernel bf16 = fp32 on {agree32}/{N_REQUESTS}")
+    if not (all(math.isfinite(r["score"]) for r in got) and d_kp <= d_pf
+            and agree >= N_REQUESTS - 2):
+        raise AssertionError("phase 9: the bf16 kernel path is further from "
+                             "its plain path than bf16 is from fp32, or the "
+                             "answers disagree")
+    log("phase 9 (a): BF16 against fp32")
+    in_turns("fp32", lambda: fp32.predict(reqs), "bf16",
+             lambda: engine.predict(reqs))
+    log("phase 9 (a): where the BF16 serving pass spends its time")
+    where_the_time_goes(engine, reqs)
+    del plain, fp32
+    int8 = engine.quantize()
+    out = drive("(b) BF16 + INT8_BERT predict", lambda: int8.predict(reqs),
+                n_batches, bf16=True, exact=True)
+    scores = batch_scores(int8, reqs, batches)
+    ok = all(bool(s.isfinite().all()) for s in scores) and all(
+        isinstance(r["answer"], str) and math.isfinite(r["score"]) for r in out)
+    agree = sum(a["answer"] == b["answer"] for a, b in zip(out, got))
+    log(f"phase 9 (b): BF16 + INT8_BERT: {len(out)} answers, scores finite "
+        f"{ok}, answers = BF16 on {agree}/{N_REQUESTS}")
+    if not ok:
+        raise AssertionError("phase 9: BF16 + INT8_BERT scores are not finite")
+
+
+def bf16_training(att, root, conf, drive):
+    """Phase 9 (c): 10 BF16 steps of the train conf through ``cli.main`` in
+    phase 6's folder, then one step with LOCK_BERT off."""
+    import torch
+
+    from ruart_tpu_torch.core.config import Config
+    from ruart_tpu_torch.models.fusion.model import RUArtModel
+    from ruart_tpu_torch.models.fusion.spec import ModelSpec
+    from ruart_tpu_torch.train.loss import make_loss_fn
+    from ruart_tpu_torch.train.optim import Optimizer, make_row_pinner
+    from ruart_tpu_torch.train.train_step import init_train_state, make_train_step
+
+    conf_bf16 = os.path.join(root, "conf_train_bf16")
+    with open(conf) as f, open(conf_bf16, "w") as g:
+        g.write("BF16\nepoch\t0.5\n" + f.read())
+    t0 = time.time()
+    # the evaluations at the start and the end launch K1 too: at least 12
+    # per step
+    trainer, steps = drive("(c) BF16 train through cli.main",
+                           lambda: run_training(att, conf_bf16),
+                           lambda out: len(out[1]), bf16=True)
+    losses = [float(loss) for _, _, loss in steps]
+    per_step = sorted({(n, b) for n, b, _ in steps})
+    log(f"phase 9 (c): {len(steps)} BF16 steps in {time.time() - t0:.1f} s "
+        f"(evaluations included), K1 (all, bf16) launches per step "
+        f"{per_step}, losses {[round(x, 5) for x in losses]}")
+    layers = trainer.spec.bert.num_hidden_layers
+    if not (len(steps) == 10 and all(math.isfinite(x) for x in losses)
+            and all(b == n == layers for n, b, _ in steps)):
+        raise AssertionError("phase 9: BF16 training ran a step without K1 in "
+                             "bf16, or a loss is not finite")
+    batch = train_batch_on_device(trainer)
+    opt = dict(trainer.opt)
+    opt.pop("LOCK_BERT")
+    spec = ModelSpec.from_config(Config(opt), trainer.spec.bert)
+    with trainer.device:
+        model = RUArtModel(spec)
+    model.load_state_dict(trainer.model.state_dict())
+    tx = Optimizer("#", LR, 10.0, model, spec, True)
+    step = make_train_step(make_loss_fn("BCE_D1"),
+                           make_row_pinner(model, spec, int(opt["tune_partial"])))
+    state = init_train_state(model, tx, 0)
+    _, loss = drive("(c) BF16 train step, LOCK_BERT off",
+                    lambda: step(state, *batch), 1, bf16=True, exact=True)
+    grads = [p.grad for n, p in model.named_parameters()
+             if n.startswith("Bert.layer_")]
+    finite = all(g is not None and bool(g.isfinite().all()) for g in grads)
+    nonzero = finite and any(g.abs().max().item() > 0 for g in grads)
+    norm = torch.linalg.vector_norm(torch.stack([g.norm() for g in grads])).item()
+    log(f"phase 9 (c): LOCK_BERT off: loss {float(loss):.6f}, {len(grads)} "
+        f"encoder gradients finite {finite}, not all zero {nonzero}, global "
+        f"norm {norm:.4e}, dtype {grads[0].dtype}")
+    if not (math.isfinite(float(loss)) and finite and nonzero):
+        raise AssertionError("phase 9: the unlocked BF16 step's encoder "
+                             "gradients are not finite or all zero")
+    del trainer, model, state, tx, batch
+
+
+def branch_forwards(reqs, root, drive):
+    """Phase 9 (d): one full-width forward of img_feature replace_od,
+    fixed_answers and ES post_process, kernel against plain path."""
+    import numpy as np
+
+    n_batches = -(-N_REQUESTS // 16)
+    path = os.path.join(root, "fixed_answers_4000.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(f"fixed answer {i}" for i in range(N_FIXED)) + "\n")
+    with open(path) as f:  # as the trainer reads it
+        fixed = [line.strip().lower() for line in f if line.strip()]
+    rng = np.random.RandomState(9)
+    cases = (
+        ("img_feature replace_od", dict(img_feature=True,
+                                        img_fea_way="replace_od"), None),
+        ("fixed_answers", dict(fixed_answers=True,
+                               fixed_answers_len=len(fixed)), fixed),
+        ("ES_using_way post_process", dict(ES_using_way="post_process"), None),
+    )
+    for label, opts, answers in cases:
+        engine, params = build_engine("auto", None, **opts)
+        plain, _ = build_engine("plain", params, **opts)
+        engine.fixed_answers = plain.fixed_answers = answers
+        batches = [b[:3] for _, _, b in engine._collated_batches(reqs)]
+        if opts.get("img_feature"):
+            for q, _, _ in batches:  # what the trainer's provider would give
+                B = q["glove"].shape[0]
+                q["img_features"] = rng.rand(B, *IMG).astype(np.float32)
+                q["img_spatials"] = rng.rand(B, IMG[0], 8).astype(np.float32)
+        got = drive(f"(d) {label} forward",
+                    lambda: batch_scores(engine, reqs, batches), n_batches,
+                    exact=True)
+        diff = max_diff(got, batch_scores(plain, reqs, batches))
+        rows = all(bool(s.isfinite().all())
+                   and (s.sum(-1) - 1).abs().max().item() < 1e-4 for s in got)
+        answers_out = drive(f"(d) {label} predict",
+                            lambda: engine.predict(reqs), n_batches,
+                            exact=True) \
+            if not opts.get("img_feature") else None
+        log(f"phase 9 (d): {label}: scores {tuple(got[0].shape)} per batch, "
+            f"kernel vs plain max |diff| {diff:.3e} (tol {SCORE_TOL:g}), "
+            f"finite softmax rows {rows}"
+            + (f", predict answers e.g. {answers_out[0]['answer']!r}"
+               if answers_out else ""))
+        if not (diff <= SCORE_TOL and rows):
+            raise AssertionError(f"phase 9: {label} kernel and plain paths "
+                                 "disagree")
+        del engine, plain
+
+
 def main() -> int:
     try:
         import torch
@@ -1045,27 +1248,34 @@ def main() -> int:
 
     def reset_counts():
         att.attention_rows_cuda.launches = 0
+        att.attention_rows_cuda.bf16_launches = 0
         att.flash_attention_cuda.launches = 0
 
     def counts():
         return {"K1": att.attention_rows_cuda.launches,
+                "K1 bf16": att.attention_rows_cuda.bf16_launches,
                 "K3": att.flash_attention_cuda.launches}
 
-    serve_paths = []  # phase 8: (path, launches, batches)
+    driven = []  # phases 8 and 9: (path, launches, batches or steps)
 
-    def drive(label, fn, batches):
-        """Run one serving path with the counts set to 0 just before and
-        read just after; K1 must launch 12 times per batch. ``batches``:
-        a count, or a function of ``fn``'s result."""
+    def drive(label, fn, batches, bf16=False, exact=False):
+        """Run one path with the counts set to 0 just before and read just
+        after. K1 must launch 12 times per batch or step: exactly with
+        ``exact``, else at least (where the path also warms up or
+        evaluates); all of them in bf16 when ``bf16``, none in bf16
+        otherwise. ``batches``: a count, or a function of ``fn``'s
+        result."""
         reset_counts()
         out = fn()
         torch.cuda.synchronize()
         launched = counts()
         n = batches(out) if callable(batches) else batches
-        serve_paths.append((label, launched, n))
-        if launched["K1"] < 12 * n:
-            raise AssertionError(f"phase 8: {label} launched K1 "
-                                 f"{launched['K1']} times for {n} batches")
+        driven.append((label, launched, n))
+        k1, b16 = launched["K1"], launched["K1 bf16"]
+        ok = k1 == 12 * n if exact else k1 >= 12 * n
+        if not (ok and b16 == (k1 if bf16 else 0)):
+            raise AssertionError(f"{label} launched K1 {k1} times ({b16} in "
+                                 f"bf16) for {n} batches or steps")
         return out
 
     t_start = time.time()
@@ -1138,8 +1348,8 @@ def main() -> int:
 
     # -- phase 3: the same batches through the plain version -----------------
     plain, _ = build_engine("plain", params)
-    got, want = batch_scores(engine, reqs), batch_scores(plain, reqs)
-    diff = max((a - b).abs().max().item() for a, b in zip(got, want))
+    got = batch_scores(engine, reqs)
+    diff = max_diff(got, batch_scores(plain, reqs))
     for s in got:
         if not (torch.isfinite(s).all() and
                 torch.allclose(s.sum(-1), torch.ones_like(s[:, 0]), atol=1e-4)):
@@ -1178,8 +1388,8 @@ def main() -> int:
         torch.cuda.synchronize()
         train_counts = counts()
         train_wall = time.time() - t0
-        losses = [float(loss) for _, loss in steps]
-        per_step = [n for n, _ in steps]
+        losses = [float(loss) for _, _, loss in steps]
+        per_step = [n for n, _, _ in steps]
         folder = os.path.join(root, "conf~", "run_1")
         layers = trainer.spec.bert.num_hidden_layers
         log(f"phase 6: CLI train {train_wall:.1f} s wall, {trainer.updates} "
@@ -1261,17 +1471,33 @@ def main() -> int:
         t0 = time.time()
         serve_stack(params, reqs, results, drive)
         serve_clis(folder, predict, reqs, drive)
-        for label, launched, n in serve_paths:
+        for label, launched, n in driven:
             log(f"  phase 8 path {label}: {n} batches, launches {launched}")
+        n_phase8 = len(driven)
         log(f"phase 8 ok in {time.time() - t0:.1f} s")
+
+        # -- phase 9: BF16, INT8+BF16, the other conf branches --------------
+        t0 = time.time()
+        bf16_serving(params, reqs, drive)
+        k1_bf16 = time_kernel(att, shape, "bfloat16")
+        log_timing("K1 bf16", shape, k1_bf16)
+        bf16_training(att, root, conf, drive)
+        branch_forwards(reqs, root, drive)
+        for label, launched, n in driven[n_phase8:]:
+            log(f"  phase 9 path {label}: {n} batches or steps, launches "
+                f"{launched}")
+        log(f"phase 9 ok in {time.time() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    stack_counts = {k: sum(c[k] for _, c, _ in serve_paths) for k in serve_counts}
+    stack_counts, branch_counts = (
+        {k: sum(c[k] for _, c, _ in paths) for k in serve_counts}
+        for paths in (driven[:n_phase8], driven[n_phase8:]))
     main_path = {k: serve_counts[k] + train_counts[k] + predict_counts[k]
-                 + stack_counts[k] for k in serve_counts}
+                 + stack_counts[k] + branch_counts[k] for k in serve_counts}
     log(f"launches on the main paths: serve {serve_counts}, train "
-        f"{train_counts}, predict {predict_counts}, serving stack {stack_counts}")
+        f"{train_counts}, predict {predict_counts}, serving stack "
+        f"{stack_counts}, phase 9 {branch_counts}")
     log(f"total {time.time() - t_start:.1f} s")
     log(card)
     source = "ruart_tpu_torch/csrc/attention.cu"
@@ -1286,7 +1512,12 @@ def main() -> int:
 
     log(json.dumps({"kernels": [
         entry("attention_rows (K1, _packed_kernel)",
-              "ruart_tpu/ops/attention.py:100", main_path["K1"], errs["K1"], k1),
+              "ruart_tpu/ops/attention.py:100",
+              main_path["K1"] - main_path["K1 bf16"], errs["K1"], k1),
+        # the same kernel's bf16 instantiation, on the BF16 paths of phase 9
+        entry("attention_rows (K1, _packed_kernel) bf16",
+              "ruart_tpu/ops/attention.py:100", main_path["K1 bf16"],
+              errs["K1 bf16"], k1_bf16),
         # K2's function runs in the same kernel; no main-path call has a
         # head width that takes it at BERT-base (dh 64)
         entry("attention_rows (K2, _grouped_kernel)",

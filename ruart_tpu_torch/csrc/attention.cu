@@ -11,7 +11,11 @@
 // Per row b and head h it computes
 //   out[b, h] = softmax(q_h k_h^T / sqrt(dh) + bias) v_h
 // with fp32 scores, a max-subtracted fp32 softmax, fp32 probabilities and
-// fp32 accumulation, as the Pallas bodies do. The kernel reads q/k/v
+// fp32 accumulation, as the Pallas bodies do -- except that a bf16 output
+// (K1/K2 under BF16) takes the probabilities normalized and rounded to
+// bf16 before P V, as its plain version and the JAX package's
+// attention_rows_xla cast them to q's type (the TPU's matrix unit rounds
+// an fp32 P to bf16 at default precision, too). The kernel reads q/k/v
 // through element strides for batch, position and head, so one body serves
 // both layouts without a copy: the model layout [B, L, H*dh] (K1/K2, output
 // in q's type) and the head-major layout [B, H, L, D] (K3, output always
@@ -57,11 +61,17 @@
 //     big*big accumulated in fp32, small terms first (CUTLASS's fast-fp32
 //     scheme). That keeps ~fp32 accuracy, where a single TF32 product keeps
 //     about three digits. bf16 inputs are exact in TF32: Q K^T takes one
-//     product per fragment and P V two (P's big and small parts times V).
+//     product per fragment, and so does P V where P is rounded to bf16
+//     (bf16 output); K3's fp32 output keeps P in fp32: two products, P's
+//     big and small parts times V.
 //   * Softmax on the accumulator fragments (online over key tiles): the
 //     C fragment holds a query row's values in one quad of 4 lanes, so the
 //     row max takes 2 shuffles and the 16 rows of a warp move together; the
-//     row sum is reduced once, in the epilogue.
+//     row sum is reduced once, in the epilogue. A bf16 output needs the
+//     normalized P before P V: the sum is reduced right after the last key
+//     tile's exponentials, and for L > 32 a first pass over the key tiles
+//     (Q K^T and the softmax statistics only) comes before the pass that
+//     computes P V -- K and V are read twice there, Q K^T is done twice.
 //   * P stays in registers: the k order of P V is permuted so that column t
 //     of the A fragment is key 2t and column t + 4 is key 2t + 1 -- the two
 //     keys the lane already holds in S's C fragment -- and V's rows are read
@@ -356,17 +366,28 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-  for (int kt = 0; kt < p.n_ktiles; ++kt) {
-    if (kt + 1 < p.n_ktiles) {  // prefetch the next key tile
-      issue(kt + 1, (kt + 1) & 1);
+  // K1 in bf16 (bf16 output) rounds the normalized probabilities to bf16
+  // before P V, as its plain version (attention_rows_plain) and the JAX
+  // package's attention_rows_xla cast them to q's type. Normalized P needs
+  // each row's max and sum first: with more than one key tile a first pass
+  // over the tiles finds them (Q K^T only), and the second computes P V.
+  constexpr bool kRoundP = sizeof(TO) == 2;
+  const int n_pass = kRoundP && p.n_ktiles > 1 ? 2 : 1;
+  const int n_iter = n_pass * p.n_ktiles;
+  for (int it = 0; it < n_iter; ++it) {
+    const int kt = it % p.n_ktiles;
+    const bool stats = n_pass == 2 && it < p.n_ktiles;  // max and sum only
+    const bool fixed = n_pass == 2 && !stats;           // max and sum known
+    if (it + 1 < n_iter) {  // prefetch the next key tile
+      issue((it + 1) % p.n_ktiles, (it + 1) & 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* kst = ksm + (kt & 1) * p.ktile * kKP;
-    const T* vst = vsm + (kt & 1) * p.ktile * kVP;
-    const float* bst = bsm + (kt & 1) * brows * p.bpitch;
+    const T* kst = ksm + (it & 1) * p.ktile * kKP;
+    const T* vst = vsm + (it & 1) * p.ktile * kVP;
+    const float* bst = bsm + (it & 1) * brows * p.bpitch;
     const int nk = min(p.ktile, L - kt * p.ktile);  // keys inside L
 
     // S = Q K^T: rows g, g + 8 of the warp; keys 8j + 2t, 8j + 2t + 1
@@ -425,64 +446,89 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
             key + 1 < nk ? s[j][2 * i + 1] * scale + bv.y : -INFINITY;
         mx[i] = fmaxf(mx[i], fmaxf(s[j][2 * i], s[j][2 * i + 1]));
       }
-    float corr[2];
+    float corr[2] = {1.f, 1.f};
+    if (!fixed) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
-      // key tile 0 holds key 0 < L, so the max is finite from here on
-      const float m_new = fmaxf(m[i], mx[i]);
-      corr[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= corr[i];
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
+        // key tile 0 holds key 0 < L, so the max is finite from here on
+        const float m_new = fmaxf(m[i], mx[i]);
+        corr[i] = expf(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= corr[i];
+      }
     }
 #pragma unroll
     for (int j = 0; j < kNT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         s[j][e] = 8 * j < nk ? expf(s[j][e] - m[e >> 1]) : 0.f;
-        l[e >> 1] += s[j][e];
+        if (!fixed) l[e >> 1] += s[j][e];
       }
+    if (kRoundP && it == p.n_ktiles - 1) {  // the rows' sums are complete
 #pragma unroll
-    for (int n = 0; n < kD8; ++n)
+      for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(kFull, l[i], 1);
+        l[i] += __shfl_xor_sync(kFull, l[i], 2);
+      }
+    }
+    if (!kRoundP) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+      for (int n = 0; n < kD8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+    }
 
     // O += P V. The k order is permuted so that column t of the A fragment
     // is key 2t and column t + 4 key 2t + 1 -- the two keys the lane holds
     // in S's C fragment -- and V's rows are read in the same order.
+    if (!stats) {
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      if (8 * j < nk) {
-        const float pa[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
-        uint32_t pb[4], ps[4];
+      for (int j = 0; j < kNT; ++j) {
+        if (8 * j < nk) {
+          const float pa[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+          uint32_t pb[4], ps[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) split(pa[e], pb[e], ps[e]);
-        const T* vr = vst + (8 * j + 2 * t) * kVP + g;
+          for (int e = 0; e < 4; ++e) {
+            if (kRoundP) {  // rows g, g + 8, g, g + 8; exact in TF32
+              pb[e] = tf32(__bfloat162float(
+                  __float2bfloat16_rn(pa[e] / l[e & 1])));
+              ps[e] = 0u;
+            } else {
+              split(pa[e], pb[e], ps[e]);
+            }
+          }
+          const T* vr = vst + (8 * j + 2 * t) * kVP + g;
 #pragma unroll
-        for (int n = 0; n < kD8; ++n) {
-          uint32_t vb[2], vs[2];
-          split(to_f32(vr[8 * n]), vb[0], vs[0]);
-          split(to_f32(vr[kVP + 8 * n]), vb[1], vs[1]);
-          // P is fp32 in either case: its small part always counts
-          mma(acc[n], ps, vb);
-          if (kF32) mma(acc[n], pb, vs);
-          mma(acc[n], pb, vb);
+          for (int n = 0; n < kD8; ++n) {
+            uint32_t vb[2], vs[2];
+            split(to_f32(vr[8 * n]), vb[0], vs[0]);
+            split(to_f32(vr[kVP + 8 * n]), vb[1], vs[1]);
+            // unrounded P is fp32 in either case: its small part counts
+            if (!kRoundP) mma(acc[n], ps, vb);
+            if (kF32) mma(acc[n], pb, vs);
+            mma(acc[n], pb, vb);
+          }
         }
       }
     }
-    if (kt + 1 < p.n_ktiles) __syncthreads();  // consumed before refilled
+    if (it + 1 < n_iter) __syncthreads();  // consumed before refilled
   }
 
-  // epilogue: the row sums, then 16-byte stores straight from registers:
-  // lanes t and t ^ 1 swap halves so that an even lane holds four
-  // neighbouring values of row g and an odd lane four of row g + 8
+  // epilogue: the row sums (P came normalized when rounded), then 16-byte
+  // stores straight from registers: lanes t and t ^ 1 swap halves so that
+  // an even lane holds four neighbouring values of row g and an odd lane
+  // four of row g + 8
+  if (!kRoundP) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(kFull, l[i], 1);
-    l[i] += __shfl_xor_sync(kFull, l[i], 2);
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(kFull, l[i], 1);
+      l[i] += __shfl_xor_sync(kFull, l[i], 2);
+    }
   }
-  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+  const float inv[2] = {kRoundP ? 1.f : 1.f / l[0],
+                        kRoundP ? 1.f : 1.f / l[1]};
   const bool odd = t & 1;
   const int pos = row0 + g + (odd ? 8 : 0);
   TO* orow = out + (long long)b * o.batch + (long long)h * o.head +

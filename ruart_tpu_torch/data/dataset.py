@@ -2,8 +2,8 @@
 
 Equivalent of `Utils/VQA_Dataset.py`: items come out as plain python/numpy
 structures which :mod:`ruart_tpu_torch.data.collate` packs into fixed-shape
-batches. Copy of ``ruart_tpu/data/dataset.py`` without the image-feature
-providers (the ``img_feature`` conf branch is not ported).
+batches. Copy of ``ruart_tpu/data/dataset.py``; the image-feature providers
+are in :mod:`ruart_tpu_torch.data.image_features`.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import logging
 from typing import Any, Dict, List, Optional, Sequence
 
 from ruart_tpu_torch.core.config import Config
+from ruart_tpu_torch.data.image_features import HDF5ImageFeatures
 from ruart_tpu_torch.eval.metrics import note_stvqa, note_textvqa
 from ruart_tpu_torch.text.wordpiece import WordPieceTokenizer
 
@@ -43,12 +44,16 @@ class VQADataset:
         cfg: Config,
         mode: str = "train",
         tokenizer: Optional[WordPieceTokenizer] = None,
+        fixed_answers_entry: Optional[dict] = None,
+        image_features=None,
     ):
         assert mode in ("train", "dev", "test")
         self.cfg = cfg
         self.opt = cfg.opt
         self.mode = mode
         self.tokenizer = tokenizer
+        self.fixed_answers_entry = fixed_answers_entry
+        self.image_features = image_features
 
         self.data: List[dict] = []
         dropped = []
@@ -192,6 +197,12 @@ class VQADataset:
                 note(answers, "yes"),
                 note(answers, "no"),
             ] + gt
+        if self.fixed_answers_entry is not None and "fixed_answers" in self.opt:
+            fixed_gt = self.fixed_answers_entry["fixed_answers_label"].get(
+                "labels", []
+            )
+            gt = list(fixed_gt) + gt
+
         gt_max = max(gt) if gt else -1.0
         gt_max_idx = gt.index(gt_max) if gt else -1
 
@@ -248,6 +259,18 @@ class VQADataset:
             self.get_item_embedding(t["word"], t["original"], t["pos"])
             for t in od_list
         ]
+
+        if "img_feature" in self.opt and self.image_features is not None:
+            # provider duck-typing: HDF5 packs key by question/image id,
+            # npy providers key by file path (`VQA_Dataset.py:154-207`)
+            if isinstance(self.image_features, HDF5ImageFeatures):
+                feat, spa = self.image_features.get(datum["question_id"])
+            else:
+                feat, spa = self.image_features.get(
+                    datum.get("filename", ""), mode=self.mode
+                )
+            q["img_features"] = feat
+            q["img_spatials"] = spa
 
         answers = datum.get("orign_answers")
         gt = self.get_label(ocr_list, answers)

@@ -154,14 +154,17 @@ def check_indices(block: Mapping[str, np.ndarray], spec: ModelSpec) -> None:
     block falls outside the table it indexes. On the card an out-of-range
     gather is a device-side assert that ends the process, so every index
     source is checked here, on the host, before the transfer."""
-    bert = spec.bert
     bounds = {
         "glove": spec.vocab_size, "fasttext": spec.vocab_size,
         "phoc": spec.vocab_size, "pos": spec.pos_vocab, "ent": spec.ent_vocab,
-        "bert": bert.vocab_size, "bert_unique": bert.vocab_size,
-        "bert_packed": bert.vocab_size,
-        "bert_packed_pos": bert.max_position_embeddings,
     }
+    bert = spec.bert
+    if bert is not None:
+        bounds.update({
+            "bert": bert.vocab_size, "bert_unique": bert.vocab_size,
+            "bert_packed": bert.vocab_size,
+            "bert_packed_pos": bert.max_position_embeddings,
+        })
     table = next((block[k] for k in ("bert_unique_offsets", "bert_unpack",
                                      "bert_unique") if k in block), None)
     if table is not None:

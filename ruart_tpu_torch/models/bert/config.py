@@ -2,9 +2,9 @@
 
 Field names match the Google/HF ``bert_config.json`` schema (reference
 `Models/Bert/modeling.py:67-153`). Copy of ``ruart_tpu/models/bert/config.py``
-without the multi-device mesh and the compute dtype: the port's encoder
-computes in fp32, with fp32 or (``quant='int8'``) weight-only int8
-projection weights."""
+without the multi-device mesh. ``dtype`` is the encoder's compute type
+(fp32, or bf16 under the ``BF16`` conf key; the weights stay fp32 either
+way); ``quant='int8'`` makes the projection weights weight-only int8."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import dataclasses
 import json
 
 ATTENTION_IMPLS = ("auto", "plain")
+DTYPES = ("float32", "bfloat16")
 QUANT_MODES = ("none", "int8")
 
 
@@ -33,6 +34,8 @@ class BertConfig:
     # plain PyTorch version for CPU tensors (ops/attention.py). 'plain'
     # forces the plain version on any device — the comparison arm only.
     attention_impl: str = "auto"
+    # compute type of the encoder layers ('bfloat16': the BF16 conf key)
+    dtype: str = "float32"
     # 'int8': weight-only int8 projection/FFN layers (ops/quant.py; the
     # INT8_BERT serving mode), weights from quant.quantize_bert_params
     quant: str = "none"
@@ -42,6 +45,8 @@ class BertConfig:
             raise ValueError(
                 f"attention_impl {self.attention_impl!r} not in {ATTENTION_IMPLS}"
             )
+        if self.dtype not in DTYPES:
+            raise ValueError(f"dtype {self.dtype!r} not in {DTYPES}")
         if self.quant not in QUANT_MODES:
             raise ValueError(f"quant {self.quant!r} not in {QUANT_MODES}")
 

@@ -14,6 +14,16 @@ The 2018 BERT architecture the reference vendors
   graph while the combine weights stay in it;
 * ``quant='int8'`` builds the six projection/FFN layers of each encoder
   layer as weight-only int8 ``ops.quant.QuantLinear`` (INT8_BERT);
+* ``dtype='bfloat16'`` (BF16) computes the encoder layers in bf16 as the
+  JAX package does: the embeddings are layer-normed in fp32 and cast; the
+  six Linears (product rounded to bf16, then the bf16 bias added), the
+  gelu (:func:`gelu`) and the attention take and give bf16 (fp32 sums);
+  each LayerNorm takes its statistics and affine in fp32 and rounds once;
+  every layer's output is widened to fp32 before the α-combine and the
+  pooler, which stays fp32. The weights stay fp32: a Linear casts its
+  weight per call, as flax does, unless
+  :meth:`BertModel.cache_compute_weights` made the frozen encoder one copy
+  in the compute type;
 * subword→word pooling is a batched segment-mean matmul
   (:func:`subword_to_word_pooling`).
 
@@ -39,13 +49,45 @@ from ruart_tpu_torch.ops.quant import QuantLinear
 ATTN_MASK_BIAS = -10000.0  # reference `modeling.py:583`
 
 
+def compute_dtype(c: BertConfig) -> torch.dtype:
+    return torch.bfloat16 if c.dtype == "bfloat16" else torch.float32
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` in its input's type (flax ``nn.Dense(dtype=...)`` over
+    fp32 parameters): a bf16 input takes the weight and bias cast to bf16,
+    from ``compute_copy`` when one was made for that type."""
+
+    compute_copy = None  # (weight, bias) in a compute type, or None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self.weight, self.bias
+        if x.dtype != w.dtype:
+            copy = self.compute_copy
+            if copy is not None and copy[0].dtype == x.dtype:
+                w, b = copy
+            else:
+                w, b = w.to(x.dtype), b.to(x.dtype)
+        return F.linear(x, w, b)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` whose statistics and affine run in fp32 whatever the
+    input's type, rounded once to it (flax's LayerNorm over fp32
+    parameters)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(x.dtype)
+
+
 def _dense(c: BertConfig, in_features: int, out_features: int) -> nn.Module:
-    """Linear factory for the encoder's projection/FFN layers: ``nn.Linear``
+    """Linear factory for the encoder's projection/FFN layers: :class:`Linear`
     normally, weight-only-int8 :class:`QuantLinear` when ``c.quant ==
     'int8'`` (weights converted by ``ops.quant.quantize_bert_params``)."""
     if c.quant == "int8":
         return QuantLinear(in_features, out_features)
-    return nn.Linear(in_features, out_features)
+    return Linear(in_features, out_features)
 
 
 class BertEmbeddings(nn.Module):
@@ -58,7 +100,8 @@ class BertEmbeddings(nn.Module):
         self.token_type_embeddings = nn.Embedding(
             c.type_vocab_size, c.hidden_size
         )
-        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        self.LayerNorm = LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        self.dtype = compute_dtype(c)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
         if position_ids is None:
@@ -72,7 +115,7 @@ class BertEmbeddings(nn.Module):
             + self.position_embeddings(position_ids)
             + self.token_type_embeddings(token_type_ids)
         )
-        return self.LayerNorm(x)
+        return self.LayerNorm(x).to(self.dtype)
 
 
 class BertSelfAttention(nn.Module):
@@ -86,7 +129,8 @@ class BertSelfAttention(nn.Module):
         self.value = _dense(c, D, D)
 
     def forward(self, hidden, bias):
-        """``bias``: float32 [B, L] key bias or [B, L, L] per-query bias."""
+        """``bias``: float32 [B, L] key bias or [B, L, L] per-query bias;
+        q/k/v and the output in the compute type of ``hidden``."""
         q, k, v = self.query(hidden), self.key(hidden), self.value(hidden)
         attend = attention_rows_plain if self.impl == "plain" else fused_attention
         return attend(q, k, v, bias, self.heads)
@@ -98,16 +142,25 @@ class BertLayer(nn.Module):
         D = c.hidden_size
         self.attention_self = BertSelfAttention(c)
         self.attention_output_dense = _dense(c, D, D)
-        self.attention_output_LayerNorm = nn.LayerNorm(D, eps=c.layer_norm_eps)
+        self.attention_output_LayerNorm = LayerNorm(D, eps=c.layer_norm_eps)
         self.intermediate_dense = _dense(c, D, c.intermediate_size)
         self.output_dense = _dense(c, c.intermediate_size, D)
-        self.output_LayerNorm = nn.LayerNorm(D, eps=c.layer_norm_eps)
+        self.output_LayerNorm = LayerNorm(D, eps=c.layer_norm_eps)
 
     def forward(self, hidden, bias):
         attn = self.attention_output_dense(self.attention_self(hidden, bias))
         hidden = self.attention_output_LayerNorm(attn + hidden)
-        inter = F.gelu(self.intermediate_dense(hidden))  # erf form
+        inter = gelu(self.intermediate_dense(hidden))
         return self.output_LayerNorm(self.output_dense(inter) + hidden)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The erf form of gelu. In bf16 it is written as the JAX package's
+    ``jax.nn.gelu(approximate=False)`` lowers: 0.5·x·erfc(−x·0.70703125)
+    (1/sqrt(2) rounded to bf16), each op rounding to bf16."""
+    if x.dtype == torch.float32:
+        return F.gelu(x)
+    return (x * 0.5) * torch.special.erfc(x * -0.70703125)
 
 
 def attention_bias(
@@ -145,7 +198,7 @@ class BertModel(nn.Module):
         self.embeddings = BertEmbeddings(c)
         for i in range(c.num_hidden_layers):
             self.add_module(f"layer_{i}", BertLayer(c))
-        self.pooler_dense = nn.Linear(c.hidden_size, c.hidden_size)
+        self.pooler_dense = Linear(c.hidden_size, c.hidden_size)
 
     def forward(
         self,
@@ -174,16 +227,33 @@ class BertModel(nn.Module):
         for i in range(self.config.num_hidden_layers):
             with torch.set_grad_enabled(encoder_grad):
                 hidden = getattr(self, f"layer_{i}")(hidden, bias)
+                out = hidden.float()
             if combine_weights is None:
-                layers.append(hidden)
+                layers.append(out)
             else:
-                term = combine_weights[i] * hidden
+                term = combine_weights[i] * out
                 acc = term if acc is None else acc + term
         with torch.set_grad_enabled(encoder_grad):
-            pooled = torch.tanh(self.pooler_dense(hidden[:, 0]))
+            pooled = torch.tanh(self.pooler_dense(out[:, 0]))
         if combine_weights is None:
             return torch.stack(layers, dim=0), pooled
         return acc, pooled
+
+    @torch.no_grad()
+    def cache_compute_weights(self) -> "BertModel":
+        """Give each projection/FFN :class:`Linear` one copy of its weight
+        and bias in the compute type, made now, so that a bf16 forward
+        casts nothing per call (72 Linears at BERT-base: 144 casts per
+        forward saved). For frozen weights only — an engine's: the copy does
+        not follow later changes to the parameters. A no-op in fp32."""
+        dtype = compute_dtype(self.config)
+        if dtype == torch.float32:
+            return self
+        for name, mod in self.named_modules():
+            if isinstance(mod, Linear) and not name.startswith("pooler"):
+                mod.compute_copy = (mod.weight.detach().to(dtype),
+                                    mod.bias.detach().to(dtype))
+        return self
 
 
 def subword_to_word_pooling(

@@ -1,13 +1,15 @@
 """RUArt fusion network in PyTorch — port of
 ``ruart_tpu/models/fusion/model.py``.
 
-The same forward as the JAX package on the shipped conf
-(`Models/SDNet.py:253-437` semantics): candidates live in fixed-shape
+The same forward as the JAX package (`Models/SDNet.py:253-437`
+semantics), with every conf branch of it: candidates live in fixed-shape
 [B, N, L] tensors, the three BERT calls (question / OCR / OD) share one
 encoder and fuse into one batched call where their token widths match,
 the 12-layer α-combine happens before subword pooling, and the
 per-candidate stage runs on compacted rows when the collator attached
-``cand_sel``. Batch schema: see the JAX module's docstring.
+``cand_sel``. Batch schema: see the JAX module's docstring. Modules and
+parameters exist only where the JAX ``setup`` creates them, so the weight
+bridge maps every leaf.
 
 Training mode (``model.train()``) runs dropout at every site the JAX
 forward has (``DROPOUT`` in the fusion layers and LSTM stacks,
@@ -15,8 +17,10 @@ forward has (``DROPOUT`` in the fusion layers and LSTM stacks,
 generator :meth:`RUArtModel.seed_dropout` installs; under ``LOCK_BERT`` the
 encoder runs without a graph while the α-combine weights still train.
 
-Conf branches the shipped conf does not take raise NotImplementedError
-naming their conf key (:func:`unported_conf_keys`).
+``PHOC`` (its embeddings are not ported) raises NotImplementedError naming
+the key (:func:`unported_conf_keys`). Three confs that the JAX forward
+cannot run either are refused at construction with a ValueError
+(:func:`_check_runnable`).
 """
 
 from __future__ import annotations
@@ -51,30 +55,24 @@ GLOBAL_KEYS = (
 
 def unported_conf_keys(s: ModelSpec) -> List[str]:
     """The conf branches of ``spec`` this port does not implement."""
-    out = []
-    checks = (
-        (s.img_feature, "img_feature"),
-        (s.use_es and s.es_using_way == "post_process",
-         "ES_using_way post_process"),
-        (s.fixed_answers, "fixed_answers"),
-        (s.position_mod != "qk+", f"position_mod {s.position_mod or '(unset)'}"),
-        (s.pos_att_merge_mod != "cat",
-         f"pos_att_merge_mod {s.pos_att_merge_mod}"),
-        (s.no_deep_attention, "no_DeepAttention"),
-        (s.no_context_self_attention, "no_Context_Self_Attention"),
-        (not (s.pre_align and s.pre_align_before_rnn),
-         "PRE_ALIGN with PRE_ALIGN_befor_rnn unset"),
-        (s.pre_align_after_rnn, "PRE_ALIGN_after_rnn"),
-        (not s.use_bert, "BERT unset"),
-        (s.use_bert and not s.bert_linear_combine,
-         "BERT_LINEAR_COMBINE unset"),
-        ("bert_only" in s.q_embedding + s.ocr_embedding, "bert_only embedding"),
-        (not (s.use_glove or s.use_fasttext), "GLOVE and FastText both unset"),
-    )
-    for hit, key in checks:
-        if hit:
-            out.append(key)
-    return out
+    return ["PHOC"] if s.use_phoc else []
+
+
+def _check_runnable(s: ModelSpec) -> None:
+    """Refuse the confs whose JAX forward fails: without GLOVE and FastText
+    there is no word vector for pre-align and deep attention (KeyError
+    'word_emb' there); ``pos_att_merge_mod`` other than original needs the
+    OD->OCR attention of a ``position_mod`` (UnboundLocalError there);
+    ``PRE_ALIGN_after_rnn`` needs ``PRE_ALIGN`` (UnboundLocalError)."""
+    if not (s.use_glove or s.use_fasttext):
+        raise ValueError("GLOVE and FastText both unset: pre-align and deep "
+                         "attention need a word-vector embedding")
+    if s.position_mod not in ("qk+", "cat") and s.pos_att_merge_mod != "original":
+        raise ValueError(f"pos_att_merge_mod {s.pos_att_merge_mod} needs "
+                         f"position_mod qk+ or cat, got "
+                         f"{s.position_mod or '(unset)'}")
+    if s.pre_align_after_rnn and not s.pre_align:
+        raise ValueError("PRE_ALIGN_after_rnn needs PRE_ALIGN")
 
 
 def _widen_ints(item: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -100,6 +98,7 @@ class RUArtModel(nn.Module):
                 "conf branches not ported to ruart_tpu_torch: "
                 + ", ".join(missing)
             )
+        _check_runnable(spec)
         s = self.spec = spec
         if s.use_glove:
             self.glove_embed = nn.Embedding(s.vocab_size, s.glove_dim)
@@ -112,20 +111,32 @@ class RUArtModel(nn.Module):
             self.pos_embedding = nn.Embedding(s.pos_vocab, s.pos_dim)
         if "ent" in names:
             self.ent_embedding = nn.Embedding(s.ent_vocab, s.ent_dim)
-        self.Bert = BertModel(s.bert)
-        self.alphaBERT = nn.Parameter(torch.ones(s.bert.num_hidden_layers))
-        self.gammaBERT = nn.Parameter(torch.ones(1, 1))
+        if s.use_bert:
+            self.Bert = BertModel(s.bert)
+            if s.bert_linear_combine:
+                self.alphaBERT = nn.Parameter(
+                    torch.ones(s.bert.num_hidden_layers))
+                self.gammaBERT = nn.Parameter(torch.ones(1, 1))
         drop = dict(dropout_p=s.dropout_p, variational=s.variational)
         self.emb_drop = Dropper(s.dropout_emb, s.variational)
 
         q_word = self._word_dim(s.q_embedding)
         tok_word = self._word_dim(s.ocr_embedding)
-        self.pre_align = Attention(
-            tok_word, s.prealign_hidden, correlation_func=3,
-            do_similarity=True, **drop,
-        )
-        m2o_in = self._emb_width(s.ocr_embedding) + q_word
         m2o = s.multi2one_output
+        if not q_word == tok_word == m2o:
+            raise ValueError(
+                f"word-vector widths differ (question {q_word}, candidate "
+                f"{tok_word}, multi2one {m2o}); pre-align and deep attention "
+                "share one projection across both sides"
+            )
+        if s.pre_align:
+            self.pre_align = Attention(
+                tok_word, s.prealign_hidden, correlation_func=3,
+                do_similarity=True, **drop,
+            )
+        m2o_in = self._emb_width(s.ocr_embedding) + (
+            q_word if s.pre_align and s.pre_align_before_rnn else 0
+        )
         self.multi2one = StackedBRNN(
             m2o_in, s.multi2one_hidden_size, 1,
             bidirectional=s.multi2one_bidir, **drop,
@@ -136,6 +147,8 @@ class RUArtModel(nn.Module):
             self._emb_width(s.q_embedding), H, layers, **drop
         )
         abstr = 2 * H * layers
+        # init_weights draws in registration order: a new module goes after
+        # the existing ones of its conf, or a seed gives other weights
         self.high_lvl_ques_rnn = StackedBRNN(
             abstr, s.highlvl_hidden_size, s.question_high_lvl_rnn_layers,
             concat_layers=True, **drop,
@@ -143,36 +156,54 @@ class RUArtModel(nn.Module):
         values = [2 * H] * layers + [s.ques_final_size]
         self.deep_attn = DeepAttention(
             m2o + abstr, values, abstr, s.deep_att_hidden_size_per_abstr,
-            s.highlvl_hidden_size, **drop,
+            s.highlvl_hidden_size, no_deep_attention=s.no_deep_attention,
+            **drop,
         )
+        inter = abstr + (0 if s.no_deep_attention else sum(values))
         ctx = 2 * s.highlvl_hidden_size
-        self.highlvl_self_att = Attention(
-            ctx + abstr + sum(values) + m2o,
-            s.deep_att_hidden_size_per_abstr, correlation_func=3, **drop,
-        )
+        if not s.no_context_self_attention:
+            self.highlvl_self_att = Attention(
+                ctx + inter + m2o, s.deep_att_hidden_size_per_abstr,
+                correlation_func=3, **drop,
+            )
         self.high_lvl_context_rnn = StackedBRNN(
-            2 * ctx, s.highlvl_hidden_size, 1, **drop
+            ctx if s.no_context_self_attention else 2 * ctx,
+            s.highlvl_hidden_size, 1, **drop,
         )
         self.ques_self_attn = Attention(
             s.ques_final_size, s.query_self_attn_hidden_size,
             correlation_func=3, **drop,
         )
-        self.od_ocr_attn = Attention(
-            ctx, H, correlation_func=3, do_similarity=True, **drop
-        )
-        self.position_attn = Attention(
-            POSITION_WIDTH, H, correlation_func=3, do_similarity=True, **drop
-        )
+        if s.position_mod == "qk+":
+            self.od_ocr_attn = Attention(
+                ctx, H, correlation_func=3, do_similarity=True, **drop
+            )
+            self.position_attn = Attention(
+                POSITION_WIDTH, H, correlation_func=3, do_similarity=True,
+                **drop,
+            )
+        elif s.position_mod == "cat":
+            self.od_ocr_attn = Attention(
+                ctx + POSITION_WIDTH, H, correlation_func=3,
+                do_similarity=True, **drop,
+            )
         self.ques_merger = LinearSelfAttn(s.ques_final_size, **drop)
+        if s.img_feature and s.img_fea_way == "replace_od":
+            self.img_fea2od = nn.Linear(s.img_fea_dim, m2o)
         self.get_answer = GetFinalScores(
             s.ocr_final_size, s.ques_final_size, yesno=s.label_yesno,
             no_answer=s.label_no_answer, use_es=s.use_es, **drop,
         )
-        if not q_word == tok_word == m2o:
-            raise ValueError(
-                f"word-vector widths differ (question {q_word}, candidate "
-                f"{tok_word}, multi2one {m2o}); pre-align and deep attention "
-                "share one projection across both sides"
+        if s.fixed_answers:
+            self.fixed_ans_classifier = nn.Linear(
+                s.ques_final_size, s.fixed_answers_len + 1
+            )
+            self.fixed_ocr_alpha = nn.Parameter(torch.full((1, 1), 0.5))
+        if s.use_es and s.es_using_way == "post_process":
+            self.ES_linear = nn.Linear(m2o, s.ocr_final_size)
+            self.ES_ocr_att = Attention(
+                s.ocr_final_size, H, correlation_func=3, do_similarity=True,
+                **drop,
             )
 
     # -- widths ------------------------------------------------------------
@@ -183,9 +214,10 @@ class RUArtModel(nn.Module):
 
     def _emb_width(self, names) -> int:
         s = self.spec
+        bert = s.bert.hidden_size if s.use_bert else 0
         widths = (
             ("phoc", s.phoc_dim), ("fasttext", s.fast_dim),
-            ("glove", s.glove_dim), ("bert", s.bert.hidden_size),
+            ("glove", s.glove_dim), ("bert", bert), ("bert_only", bert),
             ("pos", s.pos_dim), ("ent", s.ent_dim),
         )
         return sum(w for name, w in widths if name in names)
@@ -197,7 +229,7 @@ class RUArtModel(nn.Module):
         device): BERT weights N(0, initializer_range); word vectors
         U(-1, 1); other linears U(±1/sqrt(fan_in)); LSTMs U(±1/sqrt(H));
         biases 0; LayerNorm 1/0; α, γ and diagonals 1."""
-        std = self.spec.bert.initializer_range
+        std = self.spec.bert.initializer_range if self.spec.use_bert else 0.0
         for name, mod in self.named_modules():
             in_bert = name == "Bert" or name.startswith("Bert.")
             if isinstance(mod, nn.LayerNorm):
@@ -253,6 +285,17 @@ class RUArtModel(nn.Module):
     def _combine_weights(self) -> torch.Tensor:
         return torch.softmax(self.alphaBERT, dim=0) * self.gammaBERT.reshape(())
 
+    def _encode(self, ids, mask=None, **kw) -> torch.Tensor:
+        """One encoder call -> [R, L, D] fp32: the α-combined layers under
+        BERT_LINEAR_COMBINE, else the last layer. LOCK_BERT runs the
+        encoder without a graph either way."""
+        s = self.spec
+        if s.bert_linear_combine:
+            return self.Bert(ids, mask, combine_weights=self._combine_weights(),
+                             stop_layer_gradients=s.lock_bert, **kw)[0]
+        return self.Bert(ids, mask, stop_layer_gradients=s.lock_bert,
+                         **kw)[0][-1]
+
     def _bert_row_spec(self, item) -> Optional[Tuple[torch.Tensor, ...]]:
         """(ids, seg, pos) encoder rows of one q/candidate block in segment
         form, or None when the block needs the in-place path (> 512
@@ -270,13 +313,19 @@ class RUArtModel(nn.Module):
             return None
         return ids, seg, pos
 
-    def _fused_bert(self, q, ocr, od) -> Dict[str, torch.Tensor]:
+    def _fused_bert(self, q, ocr, od, od_encodes: bool
+                    ) -> Dict[str, torch.Tensor]:
         """ONE encoder call over every block whose rows share a token width
         (`bert_fuse`, default on). q rows join as single-segment rows, so
         fusion is exact. Blocks whose width matches no other block keep
-        their own call in :meth:`_bert_words`. Returns {block key: encoded
-        rows [R, L, D]} for the fused blocks."""
+        their own call in :meth:`_bert_words`; the OD block joins only when
+        it is encoded (``od_encodes``: not under ``img_feature``
+        replace_od/final_att). Returns {block key: encoded rows [R, L, D]}
+        for the fused blocks."""
         s = self.spec
+
+        def has_bert(names):
+            return "bert" in names or "bert_only" in names
 
         def has_ids(item):
             # h2d_slim drops the dense `bert` grid when a table rides along
@@ -284,12 +333,12 @@ class RUArtModel(nn.Module):
                     or "bert_unique" in item)
 
         specs = []
-        if "bert" in s.q_embedding and has_ids(q):
+        if has_bert(s.q_embedding) and has_ids(q):
             sp = self._bert_row_spec(q)
             if sp is not None:
                 specs.append(("q", sp))
-        for key, item in (("ocr", ocr), ("od", od)):
-            if not ("bert" in s.ocr_embedding and has_ids(item)):
+        for key, item, on in (("ocr", ocr, True), ("od", od, od_encodes)):
+            if not (on and has_bert(s.ocr_embedding) and has_ids(item)):
                 continue
             flat = item
             if "bert_packed" not in item and "bert_unique" not in item:
@@ -311,11 +360,7 @@ class RUArtModel(nn.Module):
             ids, seg, pos = (
                 torch.cat([sp[i] for _, sp in grp], dim=0) for i in range(3)
             )
-            encoded = self.Bert(
-                ids, None, combine_weights=self._combine_weights(),
-                segment_ids=seg, position_ids=pos,
-                stop_layer_gradients=s.lock_bert,
-            )[0]
+            encoded = self._encode(ids, segment_ids=seg, position_ids=pos)
             ofs = 0
             for key, sp in grp:
                 n = sp[0].shape[0]
@@ -324,11 +369,12 @@ class RUArtModel(nn.Module):
         return out
 
     def _bert_words(self, item, word_mask, encoded=None) -> torch.Tensor:
-        """BERT encode + α-combine + word pooling. ``encoded`` holds rows
-        already encoded by :meth:`_fused_bert`. Sequences longer than
-        ``max_position_embeddings`` are encoded in chunks concatenated on
-        the sequence axis, positions restarting per chunk
-        (`Bert.py:94-101`)."""
+        """BERT encode + α-combine (or the last layer) + word pooling.
+        ``encoded`` holds rows already encoded by :meth:`_fused_bert`.
+        Sequences longer than ``max_position_embeddings`` are encoded in
+        chunks concatenated on the sequence axis, positions restarting per
+        chunk (`Bert.py:94-101`). ``dropout_emb`` applies under
+        BERT_LINEAR_COMBINE only, as in the JAX package."""
         packed = "bert_packed" in item
         dedup = "bert_unique" in item
         if encoded is not None:
@@ -349,17 +395,14 @@ class RUArtModel(nn.Module):
             width = ids.shape[-1]
             if packed and width > max_len:
                 raise ValueError("packed rows exceed max_position_embeddings")
-            w = self._combine_weights()
             chunks = [
-                self.Bert(
-                    ids[:, a:a + max_len],
-                    None if mask is None else mask[:, a:a + max_len],
-                    combine_weights=w, stop_layer_gradients=self.spec.lock_bert,
-                    **kw,
-                )[0]
+                self._encode(ids[:, a:a + max_len],
+                             None if mask is None else mask[:, a:a + max_len],
+                             **kw)
                 for a in range(0, width, max_len)
             ]
             combined = chunks[0] if len(chunks) == 1 else torch.cat(chunks, 1)
+        drop = self.emb_drop if self.spec.bert_linear_combine else (lambda x: x)
         if packed:
             R, Lp, D = combined.shape
             flat_tokens = combined.reshape(R * Lp, D)
@@ -375,7 +418,7 @@ class RUArtModel(nn.Module):
             ones = torch.ones(uo.shape[:2], device=uo.device)
             pooled_u = subword_to_word_pooling(combined, uo, ones)
             pooled = pooled_u.index_select(0, item["bert_inverse"])
-            return self.emb_drop(pooled * word_mask[..., None])
+            return drop(pooled * word_mask[..., None])
         if packed:
             # compose the unpack with the duplicate expansion in one gather
             idx = item["bert_unpack"].index_select(0, item["bert_inverse"])
@@ -384,7 +427,7 @@ class RUArtModel(nn.Module):
             )
         elif dedup:
             combined = combined.index_select(0, item["bert_inverse"])
-        return self.emb_drop(subword_to_word_pooling(
+        return drop(subword_to_word_pooling(
             combined, item["bert_offsets"], word_mask
         ))
 
@@ -405,7 +448,7 @@ class RUArtModel(nn.Module):
             if word_emb is None:
                 word_emb = glove
             embs.append(self.emb_drop(glove))
-        if "bert" in names:
+        if "bert" in names or "bert_only" in names:
             embs.append(self._bert_words(
                 item, self._word_mask(item, initial), encoded_bert
             ))
@@ -442,17 +485,18 @@ class RUArtModel(nn.Module):
         emb, word_emb = self._embed(
             flat, s.ocr_embedding, s.ocr_emb_initial, encoded_bert
         )
-        tok_mask = self._mask_by_membership(flat, s.ocr_embedding)
-        if sel is not None:
-            # each gathered row attends to its own question's words
-            attended = self.pre_align(
-                word_emb, q_word_emb, q_word_mask, x2_row_index=row_index
-            )
-        else:
-            attended = self.pre_align(
-                word_emb.reshape(B, N * L, -1), q_word_emb, q_word_mask
-            ).reshape(B * N, L, -1)
-        emb = torch.cat([emb, attended * tok_mask[..., None]], dim=-1)
+        if s.pre_align and s.pre_align_before_rnn:
+            tok_mask = self._mask_by_membership(flat, s.ocr_embedding)
+            if sel is not None:
+                # each gathered row attends to its own question's words
+                attended = self.pre_align(
+                    word_emb, q_word_emb, q_word_mask, x2_row_index=row_index
+                )
+            else:
+                attended = self.pre_align(
+                    word_emb.reshape(B, N * L, -1), q_word_emb, q_word_mask
+                ).reshape(B * N, L, -1)
+            emb = torch.cat([emb, attended * tok_mask[..., None]], dim=-1)
         last = gather_last_state(self.multi2one(emb), flat["len"])
         if sel is not None:
             last = last * valid[:, None].float()
@@ -473,7 +517,9 @@ class RUArtModel(nn.Module):
         """Softmaxed scores [B, n_scores] of one collated batch."""
         s = self.spec
         q, ocr, od = (_widen_ints(t) for t in (q, ocr, od))
-        fused = self._fused_bert(q, ocr, od) if s.bert_fuse else {}
+        img_od = s.img_feature and s.img_fea_way in ("replace_od", "final_att")
+        fused = (self._fused_bert(q, ocr, od, not img_od)
+                 if s.use_bert and s.bert_fuse else {})
 
         q_input, q_word_emb = self._embed(
             q, s.q_embedding, s.q_emb_initial, fused.get("q")
@@ -482,9 +528,49 @@ class RUArtModel(nn.Module):
         ocr_input, ocr_mask = self._encode_candidates(
             ocr, q_word_emb, q_mask, fused.get("ocr")
         )
-        od_input, od_mask = self._encode_candidates(
-            od, q_word_emb, q_mask, fused.get("od")
-        )
+        ocr_position = ocr["position"]
+        if s.img_feature and s.img_fea_way == "replace_od":
+            od_input = self.img_fea2od(q["img_features"])
+            od_mask = torch.ones(od_input.shape[:2], device=od_input.device)
+            od_position = q["img_spatials"]
+        elif s.img_feature and s.img_fea_way == "final_att":
+            # the reference zeroes the OD stream in this mode
+            # (`SDNet.py:282-286`)
+            B, M = od["position"].shape[:2]
+            dev = od["position"].device
+            od_input = torch.zeros(B, M, s.multi2one_output, device=dev)
+            od_mask = torch.zeros(B, M, device=dev)
+            od_position = od["position"]
+        else:
+            od_input, od_mask = self._encode_candidates(
+                od, q_word_emb, q_mask, fused.get("od")
+            )
+            od_position = od["position"]
+
+        # ES post_process split (`SDNet.py:292-324`): the first es_len
+        # candidates leave the OCR stream; the rest shift down, and a
+        # count under es_len keeps its original mask bits, as in the
+        # reference
+        es_post = s.use_es and s.es_using_way == "post_process"
+        if es_post:
+            es_len = s.es_ocr_len
+            es_emb = ocr_input[:, :es_len]
+            ocr_input = ocr_input[:, es_len:]
+            ocr_position = ocr_position[:, es_len:]
+            n_rest = ocr_input.shape[1]
+            rest_cnt = (ocr["num"] - es_len).clamp(0, n_rest)
+            rest = (torch.arange(n_rest, device=ocr_input.device)[None, :]
+                    < rest_cnt[:, None]).float()
+            keep_all = (ocr["num"] < es_len)[:, None]
+            ocr_mask = torch.where(keep_all, ocr_mask[:, :n_rest], rest)
+            es_mask = torch.ones(ocr_input.shape[0], es_len,
+                                 device=ocr_input.device)
+
+        if s.pre_align and s.pre_align_after_rnn:  # `SDNet.py:330-336`
+            ocr_long = [self.pre_align(ocr_input, q_word_emb, q_mask)]
+            od_long = [self.pre_align(od_input, q_word_emb, q_mask)]
+        else:
+            ocr_long, od_long = [ocr_input], [od_input]
 
         _, ocr_layers = self.context_rnn(ocr_input, ln=True, return_list=True)
         _, q_layers = self.ques_rnn(q_input, ln=True, return_list=True)
@@ -493,42 +579,67 @@ class RUArtModel(nn.Module):
         q_all = list(q_layers) + [q_highlvl]
 
         ocr_after, ocr_inter = self.deep_attn(
-            [ocr_input], ocr_layers, [q_word_emb], q_all, ocr_mask, q_mask
+            ocr_long, ocr_layers, [q_word_emb], q_all, ocr_mask, q_mask
         )
         od_after, od_inter = self.deep_attn(
-            [od_input], od_layers, [q_word_emb], q_all, od_mask, q_mask
+            od_long, od_layers, [q_word_emb], q_all, od_mask, q_mask
         )
 
-        ocr_self_in = torch.cat([ocr_after, ocr_inter, ocr_input], dim=2)
-        od_self_in = torch.cat([od_after, od_inter, od_input], dim=2)
-        ocr_self = self.highlvl_self_att(
-            ocr_self_in, ocr_self_in, ocr_mask, x3=ocr_after
-        )
-        od_self = self.highlvl_self_att(
-            od_self_in, od_self_in, od_mask, x3=od_after
-        )
-        ocr_highlvl = self.high_lvl_context_rnn(
-            torch.cat([ocr_after, ocr_self], dim=2), ln=True
-        )
-        od_highlvl = self.high_lvl_context_rnn(
-            torch.cat([od_after, od_self], dim=2), ln=True
-        )
+        if s.no_context_self_attention:
+            ocr_highlvl = self.high_lvl_context_rnn(ocr_after, ln=True)
+            od_highlvl = self.high_lvl_context_rnn(od_after, ln=True)
+        else:
+            ocr_self_in = torch.cat([ocr_after, ocr_inter, ocr_input], dim=2)
+            od_self_in = torch.cat([od_after, od_inter, od_input], dim=2)
+            ocr_self = self.highlvl_self_att(
+                ocr_self_in, ocr_self_in, ocr_mask, x3=ocr_after
+            )
+            od_self = self.highlvl_self_att(
+                od_self_in, od_self_in, od_mask, x3=od_after
+            )
+            ocr_highlvl = self.high_lvl_context_rnn(
+                torch.cat([ocr_after, ocr_self], dim=2), ln=True
+            )
+            od_highlvl = self.high_lvl_context_rnn(
+                torch.cat([od_after, od_self], dim=2), ln=True
+            )
 
         # position-aware OD -> OCR attention (`SDNet.py:393-403`)
-        x_od_ocr = self.od_ocr_attn(ocr_highlvl, od_highlvl, od_mask) + (
-            self.position_attn(
-                ocr["position"], od["position"], od_mask, x3=od_highlvl
+        if s.position_mod == "qk+":
+            x_od_ocr = self.od_ocr_attn(ocr_highlvl, od_highlvl, od_mask) + (
+                self.position_attn(
+                    ocr_position, od_position, od_mask, x3=od_highlvl
+                )
             )
-        )
-        ocr_final = torch.cat([ocr_highlvl, x_od_ocr], dim=2)
+        elif s.position_mod == "cat":
+            x_od_ocr = self.od_ocr_attn(
+                torch.cat([ocr_highlvl, ocr_position], dim=2),
+                torch.cat([od_highlvl, od_position], dim=2), od_mask,
+            )
+        if s.pos_att_merge_mod == "cat":
+            ocr_final = torch.cat([ocr_highlvl, x_od_ocr], dim=2)
+        elif s.pos_att_merge_mod == "atted":
+            ocr_final = x_od_ocr
+        else:
+            ocr_final = ocr_highlvl
 
         q_final = self.ques_self_attn(q_highlvl, q_highlvl, q_mask)
         q_merged = weighted_avg(q_final, self.ques_merger(q_final, q_mask))
-        return self.get_answer(
+        if es_post:  # `SDNet.py:418-422`
+            es_final = self.ES_ocr_att(self.ES_linear(es_emb), ocr_final,
+                                       ocr_mask)
+            ocr_final = torch.cat([es_final, ocr_final], dim=-2)
+            ocr_mask = torch.cat([es_mask, ocr_mask], dim=-1)
+        scores = self.get_answer(
             ocr_final, q_merged, ocr_mask,
             es_len=s.es_ocr_len if s.use_es else None,
             mask_flag=s.mask_score,
         )
+        if s.fixed_answers:
+            fixed = torch.softmax(self.fixed_ans_classifier(q_merged), dim=-1)
+            alpha = self.fixed_ocr_alpha.reshape(())
+            scores = torch.cat([alpha * fixed, (1.0 - alpha) * scores], dim=-1)
+        return scores
 
 
 @torch.no_grad()

@@ -3,9 +3,9 @@
 A frozen snapshot of every conf-derived flag/size the fusion network
 needs. Built once from a :class:`ruart_tpu_torch.core.config.Config`; the
 raw opt dict never reaches the model. Copy of
-``ruart_tpu/models/fusion/spec.py``. ``INT8_BERT`` selects the weight-only
-int8 encoder (``BertConfig.quant``); the port's encoder computes in fp32
-only, so the ``BF16`` conf key raises."""
+``ruart_tpu/models/fusion/spec.py``. ``BF16`` runs the encoder in bf16
+(``BertConfig.dtype``; the fusion stack stays fp32); ``INT8_BERT`` selects
+the weight-only int8 encoder (``BertConfig.quant``)."""
 
 from __future__ import annotations
 
@@ -89,10 +89,10 @@ class ModelSpec:
             bert_config = (
                 BertConfig.large_uncased() if "BERT_LARGE" in opt else BertConfig()
             )
-        if use_bert and "BF16" in opt:
-            raise NotImplementedError(
-                "conf key BF16: the port's BERT encoder computes in fp32 only"
-            )
+        # BF16 conf flag: the encoder computes in bf16, the fusion stack
+        # stays fp32 (no reference equivalent: the reference is fp32 only)
+        if use_bert and "BF16" in opt and bert_config.dtype != "bfloat16":
+            bert_config = dataclasses.replace(bert_config, dtype="bfloat16")
         # INT8_BERT conf flag: weight-only int8 encoder (frozen-BERT serving
         # mode, no reference equivalent — ops/quant.py). Weights must go
         # through quantize_bert_params after load.

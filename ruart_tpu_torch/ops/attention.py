@@ -19,7 +19,8 @@ softmax and sums).
   counterpart of ``attention_rows_xla``. The only path for CPU tensors.
 * :func:`attention_rows_cuda` — checks its inputs and launches the kernel
   on the current stream; counts its launches in
-  ``attention_rows_cuda.launches``.
+  ``attention_rows_cuda.launches``, and those on bf16 inputs (the ``BF16``
+  encoder) also in ``attention_rows_cuda.bf16_launches``.
 * :func:`attention_rows` — dispatch on the tensors' device: CPU tensors
   take the plain version, CUDA tensors the kernel. No fallback.
 * :func:`fused_attention` — :func:`attention_rows` under autograd, the
@@ -189,10 +190,13 @@ def attention_rows_cuda(
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
     attention_rows_cuda.launches += 1
+    if q.dtype == torch.bfloat16:
+        attention_rows_cuda.bf16_launches += 1
     return out
 
 
 attention_rows_cuda.launches = 0
+attention_rows_cuda.bf16_launches = 0
 
 
 def attention_rows(
@@ -211,7 +215,8 @@ class _FusedAttention(torch.autograd.Function):
     """Forward: :func:`attention_rows` (the kernel on CUDA tensors).
     Backward: the vector-Jacobian product of :func:`attention_rows_plain`
     at the saved inputs, as ``_fused_attention_bwd`` recomputes through
-    ``attention_rows_xla``."""
+    ``attention_rows_xla``; bf16 inputs get bf16 gradients, the fp32 bias
+    an fp32 one where it needs a gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, heads):

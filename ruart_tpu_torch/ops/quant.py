@@ -50,8 +50,11 @@ class QuantLinear(nn.Module):
 
     Placeholders at construction (zeros / ones) — real values come from
     :func:`quantize_bert_params` applied to an fp32 state dict. The forward
-    follows the JAX package's ``QuantDense``: the product on the
-    dequantized weight, then ``y * scale + bias``."""
+    follows the JAX package's ``QuantDense`` in the input's type (fp32, or
+    bf16 under ``BF16``): the product of the input and the int8 weight with
+    fp32 sums and an fp32 result, then ``y * scale + bias`` in fp32,
+    rounded to the input's type. A bf16 input and the int8 weight are both
+    exact in fp32, so the product runs as an fp32 one."""
 
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
@@ -65,8 +68,8 @@ class QuantLinear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features), requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x, self.weight_q.to(x.dtype))
-        return y * self.scale + self.bias
+        y = F.linear(x.float(), self.weight_q.float())
+        return (y * self.scale + self.bias).to(x.dtype)
 
 
 def quantize_bert_params(state: Mapping[str, torch.Tensor]

@@ -21,7 +21,10 @@ Request schema (one sample):
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``; without
 a card it raises. On CUDA fp32 means full fp32: TF32 is turned off for
-matmuls and for cuDNN (which also runs the LSTMs).
+matmuls and for cuDNN (which also runs the LSTMs), and bf16 products (the
+``BF16`` encoder) sum in fp32. Under ``BF16`` the engine's frozen encoder
+keeps one bf16 copy of its projection weights, made at load
+(``BertModel.cache_compute_weights``).
 """
 
 from __future__ import annotations
@@ -79,7 +82,8 @@ def _fork_serve_items(job):
 def resolve_device(device=None) -> torch.device:
     """``None`` means the CUDA card, and raises when there is none: the
     port has no silent CPU path. On CUDA, fp32 stays full fp32: TF32 is
-    turned off for matmuls and for cuDNN (which also runs the LSTMs)."""
+    turned off for matmuls and for cuDNN (which also runs the LSTMs); bf16
+    matmuls reduce in fp32, as the TPU sums them."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -91,6 +95,7 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return device
 
 
@@ -102,13 +107,17 @@ class InferenceEngine:
         params: Mapping[str, Any],
         vocab: Sequence[str],
         tokenizer: WordPieceTokenizer,
+        fixed_answers: Optional[Sequence[str]] = None,
         device=None,
     ):
         """``params``: the state dict of ``RUArtModel(spec)`` (tensors or
-        numpy arrays), e.g. ``convert.from_jax_params(flax_params)``."""
+        numpy arrays), e.g. ``convert.from_jax_params(flax_params)``.
+        ``fixed_answers``: the answer list of a ``fixed_answers`` model (the
+        trainer's ``fixed_answers``), for decoding."""
         self.cfg = cfg
         self.spec = spec
         self.tokenizer = tokenizer
+        self.fixed_answers = fixed_answers
         self.device = resolve_device(device)
         self.collator = Collator(cfg)
         self.batch_size = cfg.batch_size
@@ -141,6 +150,8 @@ class InferenceEngine:
         with self.device:
             model = RUArtModel(spec)
         model.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()})
+        if spec.use_bert:
+            model.Bert.cache_compute_weights()
         return model.eval()
 
     def _slim(self, block):
@@ -294,7 +305,7 @@ class InferenceEngine:
     def _decode(self, scores: torch.Tensor, num: np.ndarray, extra,
                 n_real: int) -> List[Dict[str, Any]]:
         _, save_res, _, _ = decode_batch(
-            scores.cpu().numpy(), extra, num, None,
+            scores.cpu().numpy(), extra, num, self.fixed_answers,
             yesno=self.spec.label_yesno,
             label_no_answer=self.spec.label_no_answer,
         )
@@ -635,7 +646,7 @@ class InferenceEngine:
         return cls(
             trainer.cfg, trainer.spec, trainer.model.state_dict(),
             getattr(trainer, "vocab", trainer.preproc.train_vocab or []),
-            trainer.tokenizer, device=trainer.device,
+            trainer.tokenizer, trainer.fixed_answers, device=trainer.device,
         )
 
 

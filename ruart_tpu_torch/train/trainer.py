@@ -13,11 +13,15 @@ The trainer runs on the CUDA card unless the caller passes ``device="cpu"``
 ``INT8_BERT`` is an inference-time transform, as in the JAX package: the
 stateful model, its checkpoints and training stay fp32, and
 ``predict_for_test`` evaluates a weight-only int8 copy of the loaded
-weights. These JAX branches are not ported and raise NotImplementedError
-naming their conf key: mesh and multi-host execution
-(``coordinator_address``, ``tensor_parallel``, several visible cards
-without ``no_mesh``), the ``DEBUG`` data scan, ``BF16`` (refused by
-``ModelSpec``), ``fixed_answers`` and ``img_feature``.
+weights. ``BF16`` trains and evaluates the encoder in bf16 over fp32
+weights (each Linear casts its weight per call, as flax does).
+``fixed_answers`` reads the answer list and labels and ``img_feature`` the
+image features at construction, as the JAX trainer does. These JAX
+branches are not ported and raise NotImplementedError naming their conf
+key: mesh and multi-host execution (``coordinator_address``,
+``tensor_parallel``, several visible cards without ``no_mesh``), the
+``DEBUG`` data scan, and the fixed answers' PHOC vectors (``phoc`` in
+``ocr_embedding`` with ``fixed_answers``).
 """
 
 from __future__ import annotations
@@ -34,10 +38,10 @@ import msgpack
 import numpy as np
 import torch
 
-from ruart_tpu_torch.convert import bert_state_from_torch
 from ruart_tpu_torch.core.config import Config
 from ruart_tpu_torch.data.collate import Collator
 from ruart_tpu_torch.data.dataset import VQADataset
+from ruart_tpu_torch.data.image_features import load_image_features
 from ruart_tpu_torch.data.pipeline import (
     batch_iterator,
     device_put_batch,
@@ -48,6 +52,7 @@ from ruart_tpu_torch.data.preprocess import Preprocessor
 from ruart_tpu_torch.data.sampler import VQASampler
 from ruart_tpu_torch.eval.evaluator import evaluate, write_submission
 from ruart_tpu_torch.models.bert.config import BertConfig
+from ruart_tpu_torch.models.bert.convert import load_bert_params
 from ruart_tpu_torch.models.fusion.model import RUArtModel, install_embeddings
 from ruart_tpu_torch.models.fusion.spec import ModelSpec
 from ruart_tpu_torch.ops.quant import quantize_bert_params
@@ -82,11 +87,10 @@ class Trainer:
                  device=None):
         self.cfg = cfg
         self.opt = cfg.opt
-        for key in ("coordinator_address", "fixed_answers", "img_feature"):
-            if key in self.opt:
-                raise NotImplementedError(
-                    f"conf key {key}: not ported to ruart_tpu_torch"
-                )
+        if "coordinator_address" in self.opt:
+            raise NotImplementedError(
+                "conf key coordinator_address: not ported to ruart_tpu_torch"
+            )
         if int(self.opt.get("tensor_parallel", 1)) > 1:
             raise NotImplementedError(
                 "conf key tensor_parallel: mesh execution is not ported"
@@ -114,6 +118,8 @@ class Trainer:
         # host-clock records of the last train() / run_eval() calls
         self.train_seconds = 0.0
         self.eval_history: list = []
+        self._load_fixed_answers()
+        self._load_image_features()
 
     # -- folders (`BaseTrainer.py:48-69`) --------------------------------
     def get_save_folder(self, is_train: bool) -> str:
@@ -136,6 +142,41 @@ class Trainer:
         conf_file = self.opt.get("confFile")
         if conf_file and os.path.isfile(conf_file) and self.save_folder:
             shutil.copyfile(conf_file, os.path.join(self.save_folder, "conf_copy"))
+
+    # -- fixed answers (`SDNetTrainer.py:253-288`) -----------------------
+    def _load_fixed_answers(self):
+        self.fixed_answers_entry = None
+        self.fixed_answers = None
+        if "fixed_answers" not in self.opt:
+            return
+        if "phoc" in self.opt.get("ocr_embedding", ""):
+            raise NotImplementedError(
+                "conf key PHOC: the fixed answers' PHOC vectors are not ported"
+            )
+        folder = self.opt["fixed_answers_folder"]
+        with open(os.path.join(folder, "fixed_answers_4000.txt")) as f:
+            fixed = [line.strip().lower() for line in f if line.strip()]
+        label_path = os.path.join(
+            folder, "TRAIN_VAL_fixed_answers_label.msgpack"
+        )
+        labels = {}
+        if os.path.exists(label_path):
+            with open(label_path, "rb") as f:
+                labels = msgpack.unpack(f, raw=False, strict_map_key=False)
+        self.fixed_answers = fixed
+        self.fixed_answers_entry = {
+            "fixed_answers": fixed,
+            "fixed_answers_len": len(fixed),
+            "fixed_answers_label": labels,
+            "fixed_answers_phoc": None,
+        }
+        self.opt["fixed_answers_len"] = len(fixed)
+
+    def _load_image_features(self):
+        """`SDNetTrainer.load_image_features:178-207` hook."""
+        self.image_features = load_image_features(self.opt)
+        if self.image_features is not None:
+            log.info("Image features have been loaded")
 
     # -- model setup (`SDNetTrainer.setup_model:290-328`) ----------------
     def setup_model(self, embeddings: Dict[str, np.ndarray]):
@@ -182,12 +223,8 @@ class Trainer:
             cfg_json = os.path.join(bert_path, "bert_config.json")
             bin_path = os.path.join(bert_path, "pytorch_model.bin")
             if os.path.isfile(cfg_json) and os.path.isfile(bin_path):
-                bert = BertConfig.from_json(cfg_json)
-                state = torch.load(bin_path, map_location="cpu", weights_only=True)
-                model.load_state_dict(
-                    bert_state_from_torch(state, bert.num_hidden_layers),
-                    strict=False,
-                )
+                _, state = load_bert_params(bert_path)
+                model.load_state_dict(state, strict=False)
                 log.info("Loaded pretrained BERT from %s", bert_path)
         self.model = model.to(self.device)
         self.collator = Collator(cfg)
@@ -260,7 +297,9 @@ class Trainer:
 
     def _dataset(self, label_data, mode: str) -> VQADataset:
         return VQADataset(
-            label_data["data"], self.cfg, mode=mode, tokenizer=self.tokenizer
+            label_data["data"], self.cfg, mode=mode, tokenizer=self.tokenizer,
+            fixed_answers_entry=self.fixed_answers_entry,
+            image_features=self.image_features,
         )
 
     def _host_put(self, batch):
@@ -272,7 +311,7 @@ class Trainer:
         t0 = time.perf_counter()
         result = evaluate(
             self.eval_step, dataset, self.cfg, self.spec, self.device,
-            self.collator,
+            self.collator, fixed_answers=self.fixed_answers,
         )
         self.eval_history.append({
             "mode": mode, "batch": batch_i, "n": result["n"],

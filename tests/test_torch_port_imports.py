@@ -26,7 +26,10 @@ def test_scan_sees_the_package():
     names = {p.relative_to(REPO).as_posix() for p in SOURCES}
     for name in ("ruart_tpu_torch/serve.py", "ruart_tpu_torch/ops/attention.py",
                  "ruart_tpu_torch/cli/serve_main.py", "ruart_tpu_torch/ops/quant.py",
-                 "ruart_tpu_torch/utils/gctune.py", "chip_smoke.py"):
+                 "ruart_tpu_torch/utils/gctune.py", "chip_smoke.py",
+                 "ruart_tpu_torch/data/image_features.py",
+                 "ruart_tpu_torch/models/fusion/convert.py",
+                 "ruart_tpu_torch/models/bert/convert.py"):
         assert name in names
 
 

@@ -121,6 +121,15 @@ def test_trainer_refuses_unported_branches_by_name(key, value):
     opt = read_conf_lines(STVQA_CONF.splitlines())
     opt.update(TINY_OVERRIDES)
     opt[key] = value
+    if key == "img_feature":
+        # ported: as the JAX trainer, it loads the features when it is
+        # built; without img_fea_folder that is the HDF5 pack beside the
+        # feature folder, missing here
+        opt["FEATURE_FOLDER"] = "no/such/folder/"
+        with pytest.raises((FileNotFoundError, ImportError),
+                           match="train36_imgid2idx.pkl|h5py"):
+            Trainer(Config(opt), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=key):
         Trainer(Config(opt), device="cpu")
 

@@ -14,6 +14,14 @@ from a seed off any grid (not exact in TF32) and every query keeping a
 valid key. The same emulation with one TF32 product per fp32 product must
 miss by at least ten times more: a kernel that dropped the split would fail
 the card's kernel-vs-plain checks.
+
+With a bf16 output (K1 under ``BF16``) the kernel rounds the normalized
+probabilities to bf16 before P V, as ``attention_rows_xla`` casts them to
+q's type; with more than one key tile a first pass finds each row's max
+and sum. Emulated here on bf16 inputs against ``attention_rows_xla`` in
+bf16 (evaluated op by op): at most 0.5% of the outputs may round one
+bf16 step apart, where the scheme that keeps P in fp32 (the kernel before
+this rounding) differs in at least ten times as many.
 """
 
 import jax.numpy as jnp
@@ -21,7 +29,11 @@ import numpy as np
 import pytest
 import torch
 
-from ruart_tpu.ops.attention import flash_attention, grouped_attention
+from ruart_tpu.ops.attention import (
+    attention_rows_xla,
+    flash_attention,
+    grouped_attention,
+)
 
 torch.set_num_threads(2)
 TOL = 1e-5
@@ -190,3 +202,54 @@ def test_split_keeps_fp32_accuracy():
            / x.double().abs()).max().item()
     assert rel <= 2.0 ** -21
     assert (big - x).abs().max().item() > 1e-4  # TF32 alone keeps ~3 digits
+
+
+def kernel_scheme_bf16(q, k, v, bias, round_p=True):
+    """The kernel's bf16-output scheme on head-major bf16-valued fp32 q, k,
+    v [N, L, dh]: products exact in TF32; row max and sum over the key
+    tiles first, then each tile's P = exp(s - m) / l, rounded to bf16 when
+    ``round_p``, times V; the output rounded to bf16. ``round_p=False``
+    keeps P in fp32 and divides at the end."""
+    N, L, dh = q.shape
+    scale = np.float32(1.0 / np.sqrt(dh))
+    tiles = range(0, L, KEY_TILE)
+    scores = [q @ k[:, k0:k0 + KEY_TILE].transpose(1, 2) * scale
+              + bias[:, :, k0:k0 + KEY_TILE] for k0 in tiles]
+    m = torch.full((N, L, 1), -torch.inf)
+    l = torch.zeros(N, L, 1)
+    for s in scores:
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        l = l * torch.exp(m - m_new) + torch.exp(s - m_new).sum(-1, keepdim=True)
+        m = m_new
+    acc = torch.zeros(N, L, dh)
+    for k0, s in zip(tiles, scores):
+        p = torch.exp(s - m)
+        if round_p:
+            p = (p / l).bfloat16().float()
+        acc = acc + p @ v[:, k0:k0 + KEY_TILE]
+    return (acc if round_p else acc / l).bfloat16()
+
+
+@pytest.mark.parametrize("L", [32, 130], ids=["one-tile", "two-passes"])
+def test_bf16_probabilities_round_as_attention_rows_xla(L):
+    B, H, dh = 3, 4, 64
+    q, k, v, bias = _rows_inputs(5, B, L, H, dh, True)
+    q, k, v = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = np.asarray(attention_rows_xla(q, k, v, jnp.asarray(bias), H),
+                      np.float32)
+
+    def head_major(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).reshape(
+            B, L, H, dh).transpose(1, 2).reshape(B * H, L, dh)
+
+    full = torch.from_numpy(np.broadcast_to(
+        bias[:, None], (B, H, L, L)).reshape(B * H, L, L).copy())
+    shares = []
+    for round_p in (True, False):
+        got = kernel_scheme_bf16(*(head_major(x) for x in (q, k, v)), full,
+                                 round_p)
+        got = got.float().reshape(B, H, L, dh).transpose(1, 2).reshape(
+            B, L, H * dh).numpy()
+        shares.append(float((got != want).mean()))
+    assert shares[0] <= 0.005, shares
+    assert shares[1] >= 10 * max(shares[0], 1e-4), shares

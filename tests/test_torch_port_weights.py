@@ -1,7 +1,7 @@
 """The weight bridge (ruart_tpu_torch/convert.py) and the port's model
 construction: a flax RUArtModel random init maps onto the port's state
-dict key for key, shape for shape and value for value, and conf branches
-the port does not implement raise naming their conf key."""
+dict key for key, shape for shape and value for value, and the one conf
+key the port does not implement (PHOC) raises naming itself."""
 
 import dataclasses
 
@@ -20,7 +20,7 @@ from ruart_tpu.train.checkpoint import flatten_tree
 from ruart_tpu_torch.convert import from_jax_params
 from ruart_tpu_torch.core.presets import tiny_config as port_tiny_config
 from ruart_tpu_torch.models.bert.config import BertConfig
-from ruart_tpu_torch.models.fusion.model import RUArtModel
+from ruart_tpu_torch.models.fusion.model import RUArtModel, unported_conf_keys
 from ruart_tpu_torch.models.fusion.spec import ModelSpec
 
 torch.set_num_threads(2)
@@ -92,20 +92,25 @@ def test_random_init_is_seeded():
     ("ES_using_way", "post_process"), ("position_mod", "cat"),
 ])
 def test_unported_conf_branches_raise(key, value):
-    with pytest.raises(NotImplementedError, match=key.split()[0]):
-        RUArtModel(_port_spec(**{key: value}))
+    """These branches are ported now and build; the one conf key left
+    unported, PHOC, still raises naming itself."""
+    spec = _port_spec(**{key: value})
+    assert unported_conf_keys(spec) == []
+    RUArtModel(spec)
+    with pytest.raises(NotImplementedError, match="PHOC"):
+        RUArtModel(_port_spec(PHOC=True, **{key: value}))
 
 
 @pytest.mark.parametrize("key", ["BF16", "INT8_BERT"])
 def test_reduced_precision_conf_keys_raise(key):
-    """BF16 is refused by name; INT8_BERT is ported and selects the
-    weight-only int8 encoder instead."""
+    """Both are ported: BF16 selects the bf16 encoder, INT8_BERT the
+    weight-only int8 one; neither raises."""
     if key == "INT8_BERT":
         assert _port_spec(INT8_BERT=True).bert.quant == "int8"
         assert _port_spec().bert.quant == "none"
         return
-    with pytest.raises(NotImplementedError, match=key):
-        _port_spec(**{key: True})
+    assert _port_spec(BF16=True).bert.dtype == "bfloat16"
+    assert _port_spec().bert.dtype == "float32"
 
 
 def test_attention_impl_is_checked():

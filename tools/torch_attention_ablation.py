@@ -73,11 +73,14 @@ PATCHES = {
          "  const int h = blockIdx.y;\n  const int r = blockIdx.x;"),
         ("    fn<<<dim3((unsigned)H, y, z),",
          "    fn<<<dim3((unsigned)rows, (unsigned)H),")],
-    "divide": [("  const float inv[2] = {1.f / l[0], 1.f / l[1]};\n", ""),
+    "divide": [("  const float inv[2] = {kRoundP ? 1.f : 1.f / l[0],\n"
+                "                        kRoundP ? 1.f : 1.f / l[1]};\n",
+                "  const float inv[2] = {kRoundP ? 1.f : l[0],\n"
+                "                        kRoundP ? 1.f : l[1]};\n"),
                ("    const float c0 = acc[n][0] * inv[0], c1 = acc[n][1] * inv[0];\n"
                 "    const float c2 = acc[n][2] * inv[1], c3 = acc[n][3] * inv[1];",
-                "    const float c0 = acc[n][0] / l[0], c1 = acc[n][1] / l[0];\n"
-                "    const float c2 = acc[n][2] / l[1], c3 = acc[n][3] / l[1];")],
+                "    const float c0 = acc[n][0] / inv[0], c1 = acc[n][1] / inv[0];\n"
+                "    const float c2 = acc[n][2] / inv[1], c3 = acc[n][3] / inv[1];")],
     "key_tile16": [("  p.ktile = L > kKeyTile ? kKeyTile : (L + 7) / 8 * 8;",
                     "  p.ktile = L > kKeyTile ? kKeyTile\n"
                     "            : L > 16     ? 16\n"
