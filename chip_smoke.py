@@ -107,6 +107,29 @@ non-zero when there is none, or when any phase fails:
    answer file) and ``ES_using_way post_process``, kernel against plain
    path: scores within 1e-4. Every path runs with the counts set to 0 and
    must launch K1 12 times per batch or step, in bf16 where ``BF16`` is on.
+10. The (dp, tp) mesh. (a) ``sharded_fused_attention`` at the serving
+   shape in both bias forms, fp32 and bf16: the whole grid of shards in
+   one process (``sharded_fused_attention_global``, each shard through the
+   kernel on its local heads) at (dp, tp) in (2, 1), (1, 2), (2, 2) and
+   (1, 4), against K1 over all heads and against the plain version with
+   phase 1's tolerances; tp 5 over 12 heads must be refused. K1 timed on a
+   tp shard's 6 and 3 heads (136 rows x L 32) as in phase 2, beside SDPA
+   and the bound. (b) NCCL through ``maybe_initialize_distributed`` at
+   world size 1 (localhost ``coordinator_address``): one all_reduce. (c)
+   Two ranks on the one card over gloo (NCCL refuses two ranks of one
+   communicator on one device), started by ``parallel.launch.spawn``,
+   through the conf keys and the trainer at the width of phase 2 with its
+   weights (a checkpoint loaded by ``Trainer.load_model``): gloo's
+   all_reduce, all_gather and broadcast on CUDA tensors; then at dp 2 and
+   at tp 2 the forward of phase 2's three batches (scores within 1e-4 of
+   phase 3's kernel path) and one train step of the shipped train conf on
+   the first batch with seeded targets (loss within 1e-5 relative and
+   parameters within 0.05 * lr of the single-process kernel path's step
+   where the two gradients agree to 1% and exceed 1e-7, as in phase 7),
+   K1 launched on every rank on 12 heads at dp 2 and on 6 at tp 2;
+   at tp 2 a full checkpoint that rank 0 alone writes, which gives a
+   single-process trainer the ranks' scores within 1e-4. The wall time is
+   printed; two ranks sharing one card measure correctness, not speed.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.
@@ -1229,6 +1252,346 @@ def branch_forwards(reqs, root, drive):
         del engine, plain
 
 
+# -- phase 10: the (dp, tp) mesh ---------------------------------------------
+
+MESH_GRIDS = ((2, 1), (1, 2), (2, 2), (1, 4))
+
+
+def check_sharded_attention(att):
+    """Phase 10 (a): the sharded call (the whole (dp, tp) grid in one
+    process, every shard through the kernel on its local heads) against K1
+    over all heads and against the plain version, at the serving shape in
+    both bias forms, fp32 and bf16; a head count tp does not divide is
+    refused. Returns the worst fp32 error."""
+    import torch
+
+    B, L, H, dh, _ = SERVE_SHAPE
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for dtype_name in worst:
+        dtype = getattr(torch, dtype_name)
+        for bias_2d in (True, False):
+            q, k, v, bias = make_inputs(B, L, H, dh, dtype, bias_2d, 31)
+            full = att.attention_rows_cuda(q, k, v, bias, H)
+            plain = att.attention_rows_plain(q, k, v, bias, H)
+            for dp, tp in MESH_GRIDS:
+                got = att.sharded_fused_attention_global(q, k, v, bias, H,
+                                                         dp, tp)
+                for ref in (full, plain):
+                    err = (got.float() - ref.float()).abs().max().item()
+                    worst[dtype_name] = max(worst[dtype_name], err)
+    try:
+        att.sharded_fused_attention_global(q, k, v, bias, H, 1, 5)
+    except AssertionError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("phase 10: tp 5 over 12 heads was not refused")
+    log(f"phase 10 (a): sharded call at (dp, tp) in {list(MESH_GRIDS)}, "
+        f"{B} rows x L {L}, {H} heads of {dh}, both bias forms: worst error "
+        f"against K1 over all heads and the plain version fp32 "
+        f"{worst['float32']:.3e} (tol {TOL['float32']:g}), bf16 "
+        f"{worst['bfloat16']:.3e} (tol {TOL['bfloat16']:g}); tp 5 refused "
+        f"({refused})")
+    if not all(worst[k] <= TOL[k] for k in worst):
+        raise AssertionError("phase 10: the sharded call disagrees")
+    return worst["float32"]
+
+
+def nccl_world_of_one():
+    """Phase 10 (b): NCCL through maybe_initialize_distributed at world
+    size 1 (a localhost coordinator_address), one all_reduce on the card."""
+    import torch
+    import torch.distributed as dist
+
+    from ruart_tpu_torch.parallel.distributed import (
+        free_port,
+        maybe_initialize_distributed,
+    )
+
+    t0 = time.time()
+    opt = {"coordinator_address": f"localhost:{free_port()}",
+           "num_processes": 1, "process_id": 0, "local_device_ids": "0"}
+    if not maybe_initialize_distributed(opt, "cuda"):
+        raise AssertionError("phase 10: no process group")
+    backend = dist.get_backend()
+    x = torch.arange(4.0, device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+    log(f"phase 10 (b): {backend} at world size 1: all_reduce gave "
+        f"{x.tolist()} in {time.time() - t0:.2f} s (init included)")
+    if backend != "nccl" or x.tolist() != [0.0, 1.0, 2.0, 3.0]:
+        raise AssertionError("phase 10: NCCL at world size 1 failed")
+
+
+def mesh_conf(work):
+    """The serving engine's conf (the shipped ST-VQA conf at batch 16) as
+    the ranks and the single-process trainer read it."""
+    from ruart_tpu_torch.core.presets import stvqa_config
+
+    opt = dict(stvqa_config(
+        vocab_size=5000, batch_size=16,
+        preprocess_ocr_name="ocr_PMTD_ASTER,ES_ocr",
+        preprocess_od_name="OD_bottom-up").opt)
+    opt.update(datadir=work, FEATURE_FOLDER=work)
+    return opt
+
+
+def load_mesh_batches(work):
+    """The collated host batches phase 10 (c) runs (numpy), and the train
+    step's targets."""
+    import numpy as np
+
+    with np.load(os.path.join(work, "batches.npz")) as z:
+        n = int(z["n"])
+        batches = []
+        for i in range(n):
+            blocks = {}
+            for name in ("q", "ocr", "od"):
+                pre = f"{i}/{name}/"
+                blocks[name] = {k[len(pre):]: z[k] for k in z.files
+                                if k.startswith(pre)}
+            batches.append((blocks["q"], blocks["ocr"], blocks["od"]))
+        return batches, z["gt"]
+
+
+def mesh_trainer(opt, device, tp=None):
+    """A trainer with the engine's weights (``weights.ckpt``), set up
+    without preprocessing."""
+    from ruart_tpu_torch.core.config import Config
+    from ruart_tpu_torch.train.trainer import Trainer
+
+    if tp is not None:
+        opt = dict(opt, tensor_parallel=tp)
+    trainer = Trainer(Config(dict(opt)), device=device)
+    trainer.setup_model({})
+    trainer.load_model(os.path.join(opt["datadir"], "weights.ckpt"))
+    return trainer
+
+
+def on_device(trainer, batch, gt=None):
+    """A host batch (and numpy targets) as the trainer puts it on its
+    device (a rank's slice on the mesh)."""
+    q, ocr, od = batch
+    host = trainer._host_put((q, ocr, od, gt, None))
+    return trainer._device_put(host)[:4]
+
+
+def phase10_rank(rank, world, address, work, device="cuda"):
+    """One of two ranks on the one card (gloo; NCCL refuses two ranks of a
+    communicator on one device): the collectives the port uses on CUDA
+    tensors; then through the conf keys and the trainer at dp 2 and at
+    tp 2: the forward of every batch (K1 launches and local heads
+    counted), one train step of the shipped train conf, and at tp 2 a
+    full checkpoint and the scores after the step."""
+    import collections
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ruart_tpu_torch.ops import attention as att
+    from ruart_tpu_torch.parallel.distributed import (
+        fetch_local_first,
+        maybe_initialize_distributed,
+    )
+    from ruart_tpu_torch.parallel.layers import tp_dim
+    from ruart_tpu_torch.train import checkpoint as ckpt
+
+    opt = dict(mesh_conf(work), coordinator_address=address,
+               num_processes=world, process_id=rank, local_device_ids="0")
+    maybe_initialize_distributed(opt, device, backend="gloo")
+    probe = {}
+    for name, fn in (
+        ("all_reduce", lambda x: dist.all_reduce(x)),
+        ("all_gather", lambda x: dist.all_gather(
+            [torch.empty_like(x) for _ in range(world)], x)),
+        ("broadcast", lambda x: dist.broadcast(x, src=0)),
+    ):
+        try:
+            fn(torch.ones(8, device=device))
+            probe[name] = "ok"
+        except Exception as e:  # reported, and fails the phase
+            probe[name] = f"{type(e).__name__}: {e}"
+    batches, gt = load_mesh_batches(work)
+    written = []
+    write = ckpt._write
+
+    def record_write(path, arrays, meta):
+        written.append(os.path.basename(path))
+        write(path, arrays, meta)
+
+    ckpt._write = record_write
+    heads = collections.Counter()
+    rows = att.attention_rows
+
+    def record_heads(q, k, v, bias, n_heads):
+        heads[n_heads] += 1
+        return rows(q, k, v, bias, n_heads)
+
+    att.attention_rows = record_heads
+    out = {"probe": probe}
+    arrays = {}
+    for label, tp in (("dp2", 1), ("tp2", 2)):
+        trainer = mesh_trainer(opt, device, tp)
+        heads.clear()
+        att.attention_rows_cuda.launches = 0
+        att.sharded_fused_attention.launches = 0
+        sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+        sync()
+        t0 = time.time()
+        for i, batch in enumerate(batches):
+            scores, _ = trainer.eval_step(*on_device(trainer, batch))
+            arrays[f"{label}/scores/{i}"] = scores.cpu().numpy()
+        dev = on_device(trainer, batches[0], gt)
+        trainer.state, loss = trainer.train_step(trainer.state, *dev)
+        sync()
+        wall = time.time() - t0
+        stats = {"mesh": trainer.mesh.shape, "wall_s": wall,
+                 "k1": att.attention_rows_cuda.launches,
+                 "sharded": att.sharded_fused_attention.launches,
+                 "heads": dict(heads), "loss": float(loss)}
+        # the step's gradient of the global batch (summed over the copies
+        # as the optimizer sums it) and the updated parameters, tp shards
+        # gathered: every rank takes part, rank 0 keeps them
+        grads = trainer.optimizer._reduce_grads([
+            p.grad if p.grad is not None else torch.zeros_like(p)
+            for p in trainer.optimizer.params.values()])
+        for (name, p), g in zip(trainer.optimizer.params.items(), grads):
+            g = fetch_local_first(g, trainer.mesh, tp_dim(p),
+                                  materialize=rank == 0)
+            if rank == 0:
+                arrays[f"{label}/grad/{name}"] = g
+        model = trainer._host_model()
+        if rank == 0:
+            state = model.state_dict()
+            for name in trainer.optimizer.params:
+                arrays[f"{label}/param/{name}"] = state[name].cpu().numpy()
+        if tp == 2:
+            trainer.save(os.path.join(work, "tp2_full.ckpt"))
+            scores, _ = trainer.eval_step(*on_device(trainer, batches[0]))
+            arrays["tp2/after"] = scores.cpu().numpy()
+        out[label] = stats
+        del trainer, model
+    att.attention_rows = rows
+    out["written"] = written
+    with open(os.path.join(work, f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    if rank == 0:
+        np.savez(os.path.join(work, "rank_0.npz"), **arrays)
+    dist.destroy_process_group()
+
+
+def mesh_ranks(att, work, engine, params, kernel_scores, device="cuda"):
+    """Phase 10 (c): two ranks on the one card through the conf keys and
+    the trainer, against the single-process kernel path: forward scores
+    within 1e-4 of phase 3's, the train step's loss within 1e-5 relative
+    and its updated parameters within 0.05 * lr (where the gradients are
+    settled, as in phase 7), K1 on every rank (12
+    heads at dp 2, 6 at tp 2), rank 0 the only writer, and the tp-2
+    checkpoint giving the same scores in a single-process trainer.
+    Returns the sharded call's launches over the ranks."""
+    import numpy as np
+    import torch
+
+    from ruart_tpu_torch.models.fusion.model import RUArtModel
+    from ruart_tpu_torch.parallel.launch import spawn
+    from ruart_tpu_torch.train import checkpoint as ckpt
+
+    batches = [b[:3] for _, _, b in engine._collated_batches(requests())]
+    rng = np.random.RandomState(10)
+    C = kernel_scores[0].shape[1]
+    gt = np.zeros((16, C), np.float32)
+    gt[np.arange(16), rng.randint(0, C, 16)] = 1.0
+    np.savez(os.path.join(work, "batches.npz"), n=len(batches), gt=gt, **{
+        f"{i}/{name}/{k}": v for i, b in enumerate(batches)
+        for name, block in zip(("q", "ocr", "od"), b) for k, v in block.items()})
+    full = RUArtModel(engine.spec)
+    full.load_state_dict(params)
+    ckpt.save_checkpoint(os.path.join(work, "weights.ckpt"), full)
+    del full
+
+    # the single-process kernel path's train step, from the same weights
+    opt = mesh_conf(work)
+    single = mesh_trainer(opt, device)
+    dev = on_device(single, batches[0], gt)
+    single.state, loss = single.train_step(single.state, *dev)
+    want_loss = float(loss)
+    want = {n: p.detach().cpu().numpy()
+            for n, p in single.optimizer.params.items()}
+    want_grad = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 .cpu().numpy() for n, p in single.optimizer.params.items()}
+    lr = single.optimizer.lr
+    del single, dev
+
+    t0 = time.time()
+    spawn("chip_smoke:phase10_rank", 2, args=(work, device), timeout=300)
+    wall = time.time() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(work, f"rank_{r}.json")) as f:
+            ranks.append(json.load(f))
+    got = dict(np.load(os.path.join(work, "rank_0.npz")))
+    log(f"phase 10 (c): 2 gloo ranks on the one card in {wall:.1f} s wall "
+        f"(process start, model build and load included; correctness, not "
+        f"speed); gloo on CUDA tensors: {ranks[0]['probe']}")
+    failures = []
+    for label, heads in (("dp2", 12), ("tp2", 6)):
+        diff = max(float(np.abs(got[f"{label}/scores/{i}"]
+                                - s.float().cpu().numpy()).max())
+                   for i, s in enumerate(kernel_scores))
+        rel = abs(ranks[0][label]["loss"] - want_loss) / abs(want_loss)
+        # as phase 7: parameters are compared where the two gradients pin
+        # each other down to 1% and exceed 1e-7; elsewhere Adamax moves an
+        # element by up to lr in a direction rounding decides
+        worst, settled_n, grad_worst = 0.0, 0, 0.0
+        g_norm = math.sqrt(sum(float((g ** 2).sum()) for g in want_grad.values()))
+        for name, w in want.items():
+            p, g = got[f"{label}/param/{name}"], got[f"{label}/grad/{name}"]
+            gw = want_grad[name]
+            grad_worst = max(grad_worst,
+                             float(np.linalg.norm(g - gw)) / g_norm)
+            settled = (np.abs(gw) > 100 * np.abs(g - gw)) & (np.abs(gw) > 1e-7)
+            if settled.any():
+                worst = max(worst, float(np.abs(p - w)[settled].max()))
+            settled_n += int(settled.sum())
+        for r, rank in enumerate(ranks):
+            st = rank[label]
+            log(f"phase 10 (c): {label} rank {r}: mesh {st['mesh']}, K1 "
+                f"launches {st['k1']} (sharded call {st['sharded']}), local "
+                f"heads per launch {st['heads']}, {len(batches)} forwards + "
+                f"1 train step in {st['wall_s']:.2f} s")
+            if st["k1"] == 0 or set(map(int, st["heads"])) != {heads}:
+                failures.append(f"{label} rank {r}: K1 {st['k1']} launches, "
+                                f"heads {st['heads']}")
+            if label == "tp2" and st["sharded"] == 0:
+                failures.append(f"tp2 rank {r}: no sharded call")
+        log(f"phase 10 (c): {label}: max |score - single-process kernel "
+            f"path| {diff:.3e} (tol {SCORE_TOL:g}); loss {ranks[0][label]['loss']:.7f}"
+            f" vs {want_loss:.7f} (rel {rel:.2e}, tol 1e-5); worst "
+            f"|grad - grad single| over the global gradient norm "
+            f"{grad_worst:.2e}; updated parameters max |diff| {worst:.3e} "
+            f"over {settled_n} settled elements (tol {0.05 * lr:g})")
+        if not (diff <= SCORE_TOL and rel <= 1e-5 and worst <= 0.05 * lr):
+            failures.append(f"{label} disagrees with the single-process path")
+    if any(v != "ok" for v in ranks[0]["probe"].values()):
+        failures.append(f"gloo refused a CUDA collective: {ranks[0]['probe']}")
+    if ranks[1]["written"] or "tp2_full.ckpt" not in ranks[0]["written"]:
+        failures.append(f"checkpoint writes: {[r['written'] for r in ranks]}")
+    loaded = mesh_trainer(dict(opt), device)
+    loaded.load_model(os.path.join(work, "tp2_full.ckpt"))
+    scores, _ = loaded.eval_step(*on_device(loaded, batches[0]))
+    diff = float(np.abs(scores.cpu().numpy() - got["tp2/after"]).max())
+    log(f"phase 10 (c): writes rank 0 {ranks[0]['written']}, rank 1 "
+        f"{ranks[1]['written']}; the tp-2 checkpoint in a single-process "
+        f"trainer: max |score diff| {diff:.3e} against the ranks' scores "
+        f"after their step (tol {SCORE_TOL:g})")
+    if not diff <= SCORE_TOL:
+        failures.append("the tp-2 checkpoint gives other scores")
+    if failures:
+        raise AssertionError("phase 10: " + "; ".join(failures))
+    return sum(r[label]["sharded"] for r in ranks for label in ("dp2", "tp2"))
+
+
 def main() -> int:
     try:
         import torch
@@ -1247,6 +1610,7 @@ def main() -> int:
     from ruart_tpu_torch.ops import attention as att
 
     def reset_counts():
+        att.sharded_fused_attention.launches = 0
         att.attention_rows_cuda.launches = 0
         att.attention_rows_cuda.bf16_launches = 0
         att.flash_attention_cuda.launches = 0
@@ -1487,6 +1851,21 @@ def main() -> int:
             log(f"  phase 9 path {label}: {n} batches or steps, launches "
                 f"{launched}")
         log(f"phase 9 ok in {time.time() - t0:.1f} s")
+
+        # -- phase 10: the (dp, tp) mesh ------------------------------------
+        t0 = time.time()
+        sharded_err = check_sharded_attention(att)
+        k1_shards = {}
+        for n_heads in (6, 3):
+            shard = (SERVE_SHAPE[0], SERVE_SHAPE[1], n_heads) + SERVE_SHAPE[3:]
+            k1_shards[n_heads] = time_kernel(att, shard)
+            log_timing(f"K1 on a tp shard of {n_heads} heads", shard,
+                       k1_shards[n_heads])
+        nccl_world_of_one()
+        engine, _ = build_engine("auto", params)
+        sharded_launches = mesh_ranks(att, root, engine, params, got)
+        del engine
+        log(f"phase 10 ok in {time.time() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1524,6 +1903,11 @@ def main() -> int:
               "ruart_tpu/ops/attention.py:54", 0, errs["K2"], k2),
         entry("flash_attention (K3, _mha_kernel)",
               "ruart_tpu/ops/attention.py:36", main_path["K3"], k3_err, k3),
+        # K1 on one rank's 6 local heads of a tp-2 shard; launches: the
+        # sharded calls of the two ranks of phase 10 (c)
+        entry("sharded_fused_attention (K1 on a tp shard's local heads)",
+              "ruart_tpu/ops/attention.py:314", sharded_launches,
+              sharded_err, k1_shards[6]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

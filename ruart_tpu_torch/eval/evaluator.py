@@ -44,10 +44,15 @@ def evaluate(
     batch_size: Optional[int] = None,
     fixed_answers: Optional[Sequence[str]] = None,
     num_workers: Optional[int] = None,
+    device_put: Optional[Callable] = None,
 ) -> Dict[str, Any]:
     """Returns {'loss', 'ANLS', 'ACC', 'res', 'save_res', 'n'} with metrics
     normalized by dataset size (`SDNetTrainer.py:145-147`). ``eval_step``
-    is ``train_step.make_eval_step(model, loss_fn)``."""
+    is ``train_step.make_eval_step(model, loss_fn)``. ``device_put`` maps
+    a host batch to the device batch the step takes (default: the whole
+    batch on ``device``); mesh callers pass ``eval.sharded``'s, which
+    keeps this rank's slice, and an eval step that gathers the [B, C]
+    scores of the global batch."""
     collator = collator or Collator(cfg)
     batch_size = batch_size or cfg.batch_size
     if num_workers is None:
@@ -86,7 +91,8 @@ def evaluate(
     pending = None
     for host in prefetch(it, size=2,
                          host_put=lambda b: host_batch(b, spec, slim, pin)):
-        q, ocr, od, gt, extra = device_put_batch(host, device)
+        q, ocr, od, gt, extra = (device_put or (
+            lambda b: device_put_batch(b, device)))(host)
         fetch = fetch_async(*eval_step(q, ocr, od, gt))
         if pending is not None:
             drain(pending)

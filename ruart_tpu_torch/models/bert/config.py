@@ -1,8 +1,8 @@
 """BERT configuration (compatible with bert_config.json files).
 
 Field names match the Google/HF ``bert_config.json`` schema (reference
-`Models/Bert/modeling.py:67-153`). Copy of ``ruart_tpu/models/bert/config.py``
-without the multi-device mesh. ``dtype`` is the encoder's compute type
+`Models/Bert/modeling.py:67-153`). Copy of ``ruart_tpu/models/bert/config.py``.
+``dtype`` is the encoder's compute type
 (fp32, or bf16 under the ``BF16`` conf key; the weights stay fp32 either
 way); ``quant='int8'`` makes the projection weights weight-only int8."""
 
@@ -39,6 +39,12 @@ class BertConfig:
     # 'int8': weight-only int8 projection/FFN layers (ops/quant.py; the
     # INT8_BERT serving mode), weights from quant.quantize_bert_params
     quant: str = "none"
+    # (dp, tp) rank mesh (parallel.mesh.Mesh) for multi-rank execution:
+    # each rank holds its tp shard of the projections and FFN (as
+    # parallel.mesh._PARAM_RULES lays them out) and runs the attention
+    # kernel on its local heads (ops.attention.sharded_fused_attention).
+    # None = one rank.
+    mesh: object = None
 
     def __post_init__(self):
         if self.attention_impl not in ATTENTION_IMPLS:

@@ -25,7 +25,17 @@ The 2018 BERT architecture the reference vendors
   :meth:`BertModel.cache_compute_weights` made the frozen encoder one copy
   in the compute type;
 * subword→word pooling is a batched segment-mean matmul
-  (:func:`subword_to_word_pooling`).
+  (:func:`subword_to_word_pooling`);
+* with a (dp, tp) rank mesh in ``BertConfig.mesh``, each rank holds its tp
+  shard of the layers ``parallel.mesh._PARAM_RULES`` shards: Q/K/V and
+  ``intermediate_dense`` are column-parallel (this rank's heads and hidden
+  units), ``attention_output_dense`` and ``output_dense`` row-parallel
+  (:class:`RowParallelLinear`: partial products summed over tp, in the
+  layer's output type — bf16 under BF16, as the JAX program reduces the
+  Dense output — then the bias added once), ``word_embeddings``
+  vocab-parallel; the attention runs the kernel on the local heads
+  (``ops.attention.sharded_fused_attention``). A rule tp does not divide
+  leaves its layer whole (``parallel.mesh.param_dim``).
 
 Module and parameter names follow the flax tree (``embeddings``,
 ``layer_<i>``, ``attention_self.query`` ...) so ``convert.from_jax_params``
@@ -43,8 +53,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from ruart_tpu_torch.models.bert.config import BertConfig
-from ruart_tpu_torch.ops.attention import attention_rows_plain, fused_attention
+from ruart_tpu_torch.ops.attention import (
+    attention_rows_plain,
+    fused_attention,
+    sharded_fused_attention,
+)
 from ruart_tpu_torch.ops.quant import QuantLinear
+from ruart_tpu_torch.parallel.layers import (
+    all_reduce,
+    mark_sharded,
+    vocab_embedding,
+)
+from ruart_tpu_torch.parallel.mesh import param_dim
 
 ATTN_MASK_BIAS = -10000.0  # reference `modeling.py:583`
 
@@ -60,7 +80,8 @@ class Linear(nn.Linear):
 
     compute_copy = None  # (weight, bias) in a compute type, or None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def typed(self, x: torch.Tensor):
+        """(weight, bias) in ``x``'s type."""
         w, b = self.weight, self.bias
         if x.dtype != w.dtype:
             copy = self.compute_copy
@@ -68,7 +89,24 @@ class Linear(nn.Linear):
                 w, b = copy
             else:
                 w, b = w.to(x.dtype), b.to(x.dtype)
-        return F.linear(x, w, b)
+        return w, b
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, *self.typed(x))
+
+
+class RowParallelLinear(Linear):
+    """This rank's input-feature shard of a Linear: the partial product,
+    summed over the tp group in its output type, then the (replicated)
+    bias added once."""
+
+    def __init__(self, in_features: int, out_features: int, group):
+        super().__init__(in_features, out_features)
+        self.group = group
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self.typed(x)
+        return all_reduce(F.linear(x, w), self.group) + b
 
 
 class LayerNorm(nn.LayerNorm):
@@ -81,19 +119,47 @@ class LayerNorm(nn.LayerNorm):
                             self.bias, self.eps).to(x.dtype)
 
 
-def _dense(c: BertConfig, in_features: int, out_features: int) -> nn.Module:
+def _sharded_dim(c: BertConfig, name: str, shape) -> Optional[int]:
+    """The dim of the encoder parameter ``name`` (full ``shape``) that this
+    config's mesh shards over tp, or None."""
+    if c.mesh is None:
+        return None
+    return param_dim("Bert." + name, shape, c.mesh.tp, c.num_attention_heads)
+
+
+def _dense(c: BertConfig, in_features: int, out_features: int,
+           name: str = "") -> nn.Module:
     """Linear factory for the encoder's projection/FFN layers: :class:`Linear`
     normally, weight-only-int8 :class:`QuantLinear` when ``c.quant ==
-    'int8'`` (weights converted by ``ops.quant.quantize_bert_params``)."""
+    'int8'`` (weights converted by ``ops.quant.quantize_bert_params``).
+    Under a mesh, the layer ``name`` (e.g. ``layer_0.output_dense``) holds
+    its tp shard: its output features (column-parallel) or its input
+    features (:class:`RowParallelLinear`)."""
+    dim = _sharded_dim(c, name + ".weight", (out_features, in_features))
     if c.quant == "int8":
+        if dim is not None:
+            raise NotImplementedError(
+                "INT8_BERT with tensor_parallel: the int8 encoder runs on "
+                "one rank's full weights")
         return QuantLinear(in_features, out_features)
+    if dim == 0:
+        return mark_sharded(Linear(in_features, out_features // c.mesh.tp),
+                            weight=0, bias=0)
+    if dim == 1:
+        return mark_sharded(RowParallelLinear(
+            in_features // c.mesh.tp, out_features, c.mesh.tp_group), weight=1)
     return Linear(in_features, out_features)
 
 
 class BertEmbeddings(nn.Module):
     def __init__(self, c: BertConfig):
         super().__init__()
-        self.word_embeddings = nn.Embedding(c.vocab_size, c.hidden_size)
+        self.word_embeddings = vocab_embedding(
+            c.vocab_size, c.hidden_size,
+            _sharded_dim(c, "embeddings.word_embeddings.weight",
+                         (c.vocab_size, c.hidden_size)),
+            c.mesh,
+        )
         self.position_embeddings = nn.Embedding(
             c.max_position_embeddings, c.hidden_size
         )
@@ -119,32 +185,43 @@ class BertEmbeddings(nn.Module):
 
 
 class BertSelfAttention(nn.Module):
-    def __init__(self, c: BertConfig):
+    def __init__(self, c: BertConfig, prefix: str = "layer_0"):
         super().__init__()
         D = c.hidden_size
         self.heads = c.num_attention_heads
         self.impl = c.attention_impl
-        self.query = _dense(c, D, D)
-        self.key = _dense(c, D, D)
-        self.value = _dense(c, D, D)
+        self.query = _dense(c, D, D, f"{prefix}.attention_self.query")
+        self.key = _dense(c, D, D, f"{prefix}.attention_self.key")
+        self.value = _dense(c, D, D, f"{prefix}.attention_self.value")
+        # the mesh when the projections hold this rank's heads only
+        self.mesh = c.mesh if self.query.out_features < D else None
 
     def forward(self, hidden, bias):
         """``bias``: float32 [B, L] key bias or [B, L, L] per-query bias;
-        q/k/v and the output in the compute type of ``hidden``."""
+        q/k/v and the output in the compute type of ``hidden``. Under a
+        mesh that shards the heads, q/k/v and the output hold this rank's
+        heads."""
         q, k, v = self.query(hidden), self.key(hidden), self.value(hidden)
-        attend = attention_rows_plain if self.impl == "plain" else fused_attention
+        plain = self.impl == "plain"
+        if self.mesh is not None:
+            return sharded_fused_attention(q, k, v, bias, self.heads,
+                                           self.mesh, plain=plain)
+        attend = attention_rows_plain if plain else fused_attention
         return attend(q, k, v, bias, self.heads)
 
 
 class BertLayer(nn.Module):
-    def __init__(self, c: BertConfig):
+    def __init__(self, c: BertConfig, prefix: str = "layer_0"):
         super().__init__()
         D = c.hidden_size
-        self.attention_self = BertSelfAttention(c)
-        self.attention_output_dense = _dense(c, D, D)
+        self.attention_self = BertSelfAttention(c, prefix)
+        self.attention_output_dense = _dense(
+            c, D, D, f"{prefix}.attention_output_dense")
         self.attention_output_LayerNorm = LayerNorm(D, eps=c.layer_norm_eps)
-        self.intermediate_dense = _dense(c, D, c.intermediate_size)
-        self.output_dense = _dense(c, c.intermediate_size, D)
+        self.intermediate_dense = _dense(
+            c, D, c.intermediate_size, f"{prefix}.intermediate_dense")
+        self.output_dense = _dense(
+            c, c.intermediate_size, D, f"{prefix}.output_dense")
         self.output_LayerNorm = LayerNorm(D, eps=c.layer_norm_eps)
 
     def forward(self, hidden, bias):
@@ -197,7 +274,7 @@ class BertModel(nn.Module):
         self.config = c
         self.embeddings = BertEmbeddings(c)
         for i in range(c.num_hidden_layers):
-            self.add_module(f"layer_{i}", BertLayer(c))
+            self.add_module(f"layer_{i}", BertLayer(c, f"layer_{i}"))
         self.pooler_dense = Linear(c.hidden_size, c.hidden_size)
 
     def forward(

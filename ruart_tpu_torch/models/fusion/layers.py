@@ -6,14 +6,17 @@ the reference's `Models/Layers.py`).
 * :func:`seq_dropout` / :class:`Dropper` — variational (time-shared) and
   plain dropout (`Layers.py:23-39`). Masks come from the ``torch.Generator``
   the root model hands every :class:`Dropper` (``RUArtModel.seed_dropout``);
-  every dropout is the identity under ``model.eval()``.
+  every dropout is the identity under ``model.eval()``. On a rank of a dp
+  mesh each site draws the mask of the GLOBAL batch and keeps its rows
+  (``Dropper.rows``), so a dp step equals the single-process step.
 * :class:`AttentionScore` / :class:`Attention` — the 5 correlation kernels
   and the masked softmax-attend (`Layers.py:182-295`), including the
   ``x2_row_index`` gathered-row form candidate compaction uses.
 * :class:`LinearSelfAttn`, :class:`BilinearSeqAttn`,
   :class:`GetFinalScores` (ES split, no-answer / yes-no heads, final
   softmax; the reference's never-read GRU pointer hop is not built).
-* :func:`whole_tensor_layer_norm` — moments over the WHOLE batch tensor.
+* :func:`whole_tensor_layer_norm` — moments over the WHOLE batch tensor
+  (summed over the dp ranks' rows on a mesh).
 
 Input widths are constructor arguments (flax infers them at init); the
 module and parameter names follow the flax tree.
@@ -21,37 +24,52 @@ module and parameter names follow the flax tree.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+
+from ruart_tpu_torch.parallel.layers import all_reduce
 
 NEG_INF = -1e30  # finite -inf stand-in: keeps softmax NaN-free on all-masked rows
 
 
 def seq_dropout(x: torch.Tensor, p: float, variational: bool,
-                generator: torch.Generator) -> torch.Tensor:
+                generator: torch.Generator,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Dropout with keep probability 1 - p, scaled by 1 / (1 - p). A 3-D
     input under ``variational`` keeps one [B, 1, D] mask shared across the
-    time axis (`Layers.py:23-30`); anything else gets a mask per element."""
-    shape = (x.shape[0], 1, x.shape[2]) if variational and x.dim() == 3 else x.shape
+    time axis (`Layers.py:23-30`); anything else gets a mask per element.
+    With ``rows`` = (global rows, first row), ``x`` holds rows [first,
+    first + len(x)) of a tensor of that many rows: the mask of the whole
+    tensor is drawn and those rows kept."""
+    n, start = rows if rows is not None else (x.shape[0], 0)
+    shape = (n, 1, x.shape[2]) if variational and x.dim() == 3 else (
+        n, *x.shape[1:])
     keep = torch.empty(shape, dtype=x.dtype, device=x.device)
     keep.bernoulli_(1.0 - p, generator=generator)
-    return x * keep / (1.0 - p)
+    return x * keep[start:start + x.shape[0]] / (1.0 - p)
 
 
 class Dropper(nn.Module):
     """Dropout at one site of the JAX forward (``dropout_fn``): the identity
     in eval mode or at p 0, :func:`seq_dropout` in training mode. Holds no
-    parameters; ``generator`` is set by ``RUArtModel.seed_dropout``."""
+    parameters; ``generator`` is set by ``RUArtModel.seed_dropout``.
+
+    ``rows`` is the root model's map {row layout: (global rows, first row)}
+    for the forward in flight, shared by every site: a call names the
+    layout of its input's dim 0 — ``'dense'`` for the batch axis,
+    ``'flat'`` for the candidate rows — and, where the map holds it, draws
+    the global mask and keeps this rank's rows. Empty on one rank."""
 
     def __init__(self, p: float = 0.0, variational: bool = True):
         super().__init__()
         self.p = p
         self.variational = variational
         self.generator: Optional[torch.Generator] = None
+        self.rows: Dict[str, Tuple[int, int]] = {}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, layout: str = "dense") -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
         if self.generator is None:
@@ -59,7 +77,8 @@ class Dropper(nn.Module):
                 "dropout in training mode needs a generator: call "
                 "RUArtModel.seed_dropout(seed) first"
             )
-        return seq_dropout(x, self.p, self.variational, self.generator)
+        return seq_dropout(x, self.p, self.variational, self.generator,
+                           self.rows.get(layout))
 
 
 def masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor],
@@ -102,10 +121,12 @@ class AttentionScore(nn.Module):
 
     def forward(self, x1, x2, x2_row_index=None):
         """``x2_row_index`` [R] maps each x1 row to its x2 batch row: x1 is
-        [R, Lx, D] gathered rows, x2 stays [B, Ly, D] and is projected once
-        at batch granularity before the per-row gather."""
+        [R, Lx, D] gathered rows (candidate-row layout), x2 stays
+        [B, Ly, D] and is projected once at batch granularity before the
+        per-row gather."""
         cf = self.cf
-        x1, x2 = self.drop(x1), self.drop(x2)
+        x1 = self.drop(x1, "dense" if x2_row_index is None else "flat")
+        x2 = self.drop(x2)
         if cf in (2, 3):
             x1r, x2r = self.linear(x1), self.linear(x2)
             if cf == 3:
@@ -248,12 +269,26 @@ class GetFinalScores(nn.Module):
         return getattr(self, f"{prefix}_w")(attn_x)
 
 
-def whole_tensor_layer_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def whole_tensor_layer_norm(x: torch.Tensor, eps: float = 1e-5,
+                            group=None) -> torch.Tensor:
     """``F.layer_norm(x, x.size())`` — normalization over ALL axes of the
     batch tensor with no learned affine, the form used after every context
     RNN layer (`Layers.py:167-168`). Every score in a batch therefore
-    depends on every row of it."""
-    mean = x.mean()
-    var = x.var(unbiased=False)
+    depends on every row of it.
+
+    With ``group`` (the dp group of a mesh) ``x`` is this rank's rows of
+    the global batch tensor, whose moments the JAX program takes over all
+    of it: the sum and the count are summed over the group, then the sum of
+    squared deviations from the global mean — two differentiable
+    all-reduces, so the gradient crosses ranks as it does in the global
+    program."""
+    if group is None:
+        mean = x.mean()
+        var = x.var(unbiased=False)
+    else:
+        stats = torch.stack([x.sum(), x.new_tensor(float(x.numel()))])
+        total, count = all_reduce(stats, group).unbind()
+        mean = total / count
+        var = all_reduce(((x - mean) ** 2).sum(), group) / count
     return (x - mean) * torch.rsqrt(var + eps)
 

@@ -17,6 +17,19 @@ forward has (``DROPOUT`` in the fusion layers and LSTM stacks,
 generator :meth:`RUArtModel.seed_dropout` installs; under ``LOCK_BERT`` the
 encoder runs without a graph while the α-combine weights still train.
 
+With a (dp, tp) rank mesh (``RUArtModel(spec, mesh)``) the model computes
+this rank's share of the JAX program on the global batch: the per-sample
+grids hold the rank's dp slice of the rows, the batch-global encoder tables
+(``GLOBAL_KEYS``) come whole. Each encoder call over batch-global rows
+encodes this rank's contiguous share of them and sums the zero-padded
+shares over dp (``parallel.layers.gather_rows``), so dp divides the
+encoder's work and every rank gets the whole table; ``cand_sel`` is mapped
+onto the rank's candidate rows (the others become pad rows); the
+whole-tensor layer norm sums its moments over dp; each dropout site draws
+the global batch's mask and keeps the rank's rows. Under tp the encoder is
+tensor-parallel (``models/bert/model.py``) and the glove/fast tables are
+split by rows, as ``parallel.mesh._PARAM_RULES`` lays them out.
+
 ``PHOC`` (its embeddings are not ported) raises NotImplementedError naming
 the key (:func:`unported_conf_keys`). Three confs that the JAX forward
 cannot run either are refused at construction with a ValueError
@@ -25,6 +38,7 @@ cannot run either are refused at construction with a ValueError
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -42,6 +56,8 @@ from ruart_tpu_torch.models.fusion.layers import (
 )
 from ruart_tpu_torch.models.fusion.rnn import StackedBRNN, gather_last_state
 from ruart_tpu_torch.models.fusion.spec import ModelSpec
+from ruart_tpu_torch.parallel.layers import gather_rows, row_range, vocab_embedding
+from ruart_tpu_torch.parallel.mesh import param_dim
 
 POSITION_WIDTH = 8  # normalized box quad per candidate
 
@@ -90,7 +106,9 @@ def _flatten_cand(x: torch.Tensor) -> torch.Tensor:
 
 
 class RUArtModel(nn.Module):
-    def __init__(self, spec: ModelSpec):
+    def __init__(self, spec: ModelSpec, mesh=None):
+        """``mesh``: this rank's ``parallel.mesh.Mesh`` (see the module
+        doc), or None on one rank."""
         super().__init__()
         missing = unported_conf_keys(spec)
         if missing:
@@ -100,10 +118,17 @@ class RUArtModel(nn.Module):
             )
         _check_runnable(spec)
         s = self.spec = spec
+        self.mesh = mesh
+        tp = mesh.tp if mesh is not None else 1
+
+        def table(name, width):
+            dim = param_dim(f"{name}.weight", (s.vocab_size, width), tp)
+            return vocab_embedding(s.vocab_size, width, dim, mesh)
+
         if s.use_glove:
-            self.glove_embed = nn.Embedding(s.vocab_size, s.glove_dim)
+            self.glove_embed = table("glove_embed", s.glove_dim)
         if s.use_fasttext:
-            self.fast_embed = nn.Embedding(s.vocab_size, s.fast_dim)
+            self.fast_embed = table("fast_embed", s.fast_dim)
         if s.use_phoc:
             self.phoc_embed = nn.Embedding(s.vocab_size, s.phoc_dim)
         names = s.q_embedding + s.ocr_embedding
@@ -112,7 +137,9 @@ class RUArtModel(nn.Module):
         if "ent" in names:
             self.ent_embedding = nn.Embedding(s.ent_vocab, s.ent_dim)
         if s.use_bert:
-            self.Bert = BertModel(s.bert)
+            bert = s.bert if mesh is None else dataclasses.replace(
+                s.bert, mesh=mesh)
+            self.Bert = BertModel(bert)
             if s.bert_linear_combine:
                 self.alphaBERT = nn.Parameter(
                     torch.ones(s.bert.num_hidden_layers))
@@ -205,6 +232,20 @@ class RUArtModel(nn.Module):
                 s.ocr_final_size, H, correlation_func=3, do_similarity=True,
                 **drop,
             )
+        # the dropout sites' row layouts of the forward in flight (filled
+        # per forward on a dp mesh), and the layer norms' dp group
+        self._rows: Dict[str, Tuple[int, int]] = {}
+        for mod in self.modules():
+            if isinstance(mod, Dropper):
+                mod.rows = self._rows
+            elif isinstance(mod, StackedBRNN):
+                mod.ln_group = mesh.dp_group if mesh is not None else None
+
+    def _dp(self) -> Tuple[int, int]:
+        """(dp size, this rank's dp index)."""
+        if self.mesh is None:
+            return 1, 0
+        return self.mesh.dp, self.mesh.dp_rank
 
     # -- widths ------------------------------------------------------------
     def _word_dim(self, names) -> int:
@@ -285,10 +326,21 @@ class RUArtModel(nn.Module):
     def _combine_weights(self) -> torch.Tensor:
         return torch.softmax(self.alphaBERT, dim=0) * self.gammaBERT.reshape(())
 
-    def _encode(self, ids, mask=None, **kw) -> torch.Tensor:
+    def _encode(self, ids, mask=None, global_rows: bool = False,
+                **kw) -> torch.Tensor:
         """One encoder call -> [R, L, D] fp32: the α-combined layers under
         BERT_LINEAR_COMBINE, else the last layer. LOCK_BERT runs the
-        encoder without a graph either way."""
+        encoder without a graph either way. ``global_rows``: the rows are a
+        batch-global table, the same on every rank; on a dp mesh each rank
+        encodes its share and the shares are summed over dp."""
+        dp, d = self._dp()
+        if global_rows and dp > 1:
+            n = ids.shape[0]
+            a, b = row_range(n, dp, d)
+            part = self._encode(
+                ids[a:b], None if mask is None else mask[a:b],
+                **{k: v[a:b] for k, v in kw.items()})
+            return gather_rows(part, a, n, self.mesh.dp_group)
         s = self.spec
         if s.bert_linear_combine:
             return self.Bert(ids, mask, combine_weights=self._combine_weights(),
@@ -299,7 +351,9 @@ class RUArtModel(nn.Module):
     def _bert_row_spec(self, item) -> Optional[Tuple[torch.Tensor, ...]]:
         """(ids, seg, pos) encoder rows of one q/candidate block in segment
         form, or None when the block needs the in-place path (> 512
-        chunking). Candidate blocks come flattened to [B*N, Lb]."""
+        chunking). Candidate blocks come flattened to [B*N, Lb]. The rows
+        are batch-global exactly when they come from a packed or unique
+        table (:func:`_global_rows`)."""
         if "bert_packed" in item:
             ids = item["bert_packed"]
             seg, pos = item["bert_packed_seg"], item["bert_packed_pos"]
@@ -312,6 +366,10 @@ class RUArtModel(nn.Module):
         if ids.shape[-1] > self.spec.bert.max_position_embeddings:
             return None
         return ids, seg, pos
+
+    @staticmethod
+    def _global_rows(item) -> bool:
+        return "bert_packed" in item or "bert_unique" in item
 
     def _fused_bert(self, q, ocr, od, od_encodes: bool
                     ) -> Dict[str, torch.Tensor]:
@@ -333,10 +391,12 @@ class RUArtModel(nn.Module):
                     or "bert_unique" in item)
 
         specs = []
+        shared = {}  # block key -> its rows are batch-global
         if has_bert(s.q_embedding) and has_ids(q):
             sp = self._bert_row_spec(q)
             if sp is not None:
                 specs.append(("q", sp))
+                shared["q"] = self._global_rows(q)
         for key, item, on in (("ocr", ocr, True), ("od", od, od_encodes)):
             if not (on and has_bert(s.ocr_embedding) and has_ids(item)):
                 continue
@@ -350,6 +410,7 @@ class RUArtModel(nn.Module):
             sp = self._bert_row_spec(flat)
             if sp is not None:
                 specs.append((key, sp))
+                shared[key] = self._global_rows(flat)
         by_width: Dict[int, list] = {}
         for key, sp in specs:
             by_width.setdefault(sp[0].shape[-1], []).append((key, sp))
@@ -360,7 +421,9 @@ class RUArtModel(nn.Module):
             ids, seg, pos = (
                 torch.cat([sp[i] for _, sp in grp], dim=0) for i in range(3)
             )
-            encoded = self._encode(ids, segment_ids=seg, position_ids=pos)
+            encoded = self._encode(
+                ids, global_rows=all(shared[key] for key, _ in grp),
+                segment_ids=seg, position_ids=pos)
             ofs = 0
             for key, sp in grp:
                 n = sp[0].shape[0]
@@ -368,7 +431,8 @@ class RUArtModel(nn.Module):
                 ofs += n
         return out
 
-    def _bert_words(self, item, word_mask, encoded=None) -> torch.Tensor:
+    def _bert_words(self, item, word_mask, encoded=None,
+                    layout: str = "dense") -> torch.Tensor:
         """BERT encode + α-combine (or the last layer) + word pooling.
         ``encoded`` holds rows already encoded by :meth:`_fused_bert`.
         Sequences longer than ``max_position_embeddings`` are encoded in
@@ -398,11 +462,16 @@ class RUArtModel(nn.Module):
             chunks = [
                 self._encode(ids[:, a:a + max_len],
                              None if mask is None else mask[:, a:a + max_len],
-                             **kw)
+                             global_rows=packed or dedup, **kw)
                 for a in range(0, width, max_len)
             ]
             combined = chunks[0] if len(chunks) == 1 else torch.cat(chunks, 1)
-        drop = self.emb_drop if self.spec.bert_linear_combine else (lambda x: x)
+        if self.spec.bert_linear_combine:
+            def drop(x):
+                return self.emb_drop(x, layout)
+        else:
+            def drop(x):
+                return x
         if packed:
             R, Lp, D = combined.shape
             flat_tokens = combined.reshape(R * Lp, D)
@@ -431,26 +500,29 @@ class RUArtModel(nn.Module):
             combined, item["bert_offsets"], word_mask
         ))
 
-    def _embed(self, item, names, initial, encoded_bert=None):
+    def _embed(self, item, names, initial, encoded_bert=None,
+               layout: str = "dense"):
         """Concatenated embedding (`SDNet.py:439-493`). Returns
         (embedding, raw word vectors for pre-align / deep attention); the
         word and BERT parts of the embedding take ``dropout_emb``, the raw
-        word vectors do not."""
+        word vectors do not. ``layout``: the row layout of ``item``'s
+        grids ('dense' for the question block, 'flat' for candidate
+        rows)."""
         embs = []
         word_emb = None
         if "phoc" in names:
-            embs.append(self.emb_drop(self.phoc_embed(item["phoc"])))
+            embs.append(self.emb_drop(self.phoc_embed(item["phoc"]), layout))
         if "fasttext" in names:
             word_emb = self.fast_embed(item["fasttext"])
-            embs.append(self.emb_drop(word_emb))
+            embs.append(self.emb_drop(word_emb, layout))
         if "glove" in names:
             glove = self.glove_embed(item["glove"])
             if word_emb is None:
                 word_emb = glove
-            embs.append(self.emb_drop(glove))
+            embs.append(self.emb_drop(glove, layout))
         if "bert" in names or "bert_only" in names:
             embs.append(self._bert_words(
-                item, self._word_mask(item, initial), encoded_bert
+                item, self._word_mask(item, initial), encoded_bert, layout
             ))
         if "pos" in names:
             embs.append(self.pos_embedding(item["pos"]))
@@ -470,6 +542,19 @@ class RUArtModel(nn.Module):
         }
         sel = flat.pop("cand_sel", None)
         row_index = None
+        dp, d = self._dp()
+        if sel is not None and dp > 1:
+            # cand_sel indexes the global batch's B*N*dp candidate rows:
+            # keep this rank's, the others become pad rows (the sentinel)
+            local = sel - d * B * N
+            sel = torch.where((local >= 0) & (local < B * N), local,
+                              torch.full_like(local, B * N))
+        if dp > 1:
+            # compacted rows have the global row count on every rank;
+            # the dense [B*N] rows are this rank's slice of B*N*dp
+            self._rows.pop("flat", None)
+            if sel is None:
+                self._rows["flat"] = (B * N * dp, d * B * N)
         if sel is not None:
             # candidate-row compaction: the per-candidate stage runs on the
             # gathered real rows; pad entries carry the sentinel B*N, which
@@ -483,7 +568,7 @@ class RUArtModel(nn.Module):
             }
             row_index = torch.div(sel, N, rounding_mode="floor")
         emb, word_emb = self._embed(
-            flat, s.ocr_embedding, s.ocr_emb_initial, encoded_bert
+            flat, s.ocr_embedding, s.ocr_emb_initial, encoded_bert, "flat"
         )
         if s.pre_align and s.pre_align_before_rnn:
             tok_mask = self._mask_by_membership(flat, s.ocr_embedding)
@@ -497,7 +582,8 @@ class RUArtModel(nn.Module):
                     word_emb.reshape(B, N * L, -1), q_word_emb, q_word_mask
                 ).reshape(B * N, L, -1)
             emb = torch.cat([emb, attended * tok_mask[..., None]], dim=-1)
-        last = gather_last_state(self.multi2one(emb), flat["len"])
+        last = gather_last_state(self.multi2one(emb, layout="flat"),
+                                 flat["len"])
         if sel is not None:
             last = last * valid[:, None].float()
             cand = torch.zeros(
@@ -517,6 +603,10 @@ class RUArtModel(nn.Module):
         """Softmaxed scores [B, n_scores] of one collated batch."""
         s = self.spec
         q, ocr, od = (_widen_ints(t) for t in (q, ocr, od))
+        dp, d = self._dp()
+        if dp > 1:
+            B = ocr["num"].shape[0]
+            self._rows["dense"] = (B * dp, d * B)
         img_od = s.img_feature and s.img_fea_way in ("replace_od", "final_att")
         fused = (self._fused_bert(q, ocr, od, not img_od)
                  if s.use_bert and s.bert_fuse else {})

@@ -23,7 +23,8 @@ class StackedBRNN(nn.Module):
     """Multi-layer (Bi)LSTM with per-layer outputs (`Layers.py:124-180`).
 
     * dropout on each layer's input in training mode (``dropout_p``)
-    * optional whole-tensor layer norm after each layer (``ln=True``)
+    * optional whole-tensor layer norm after each layer (``ln=True``),
+      its moments summed over ``ln_group`` (a mesh's dp group) when set
     * ``concat_layers`` concatenates per-layer outputs on the feature axis
 
     Layer i is ``rnn_<i>``, an ``nn.LSTM`` (``weight_ih_l0`` and, when
@@ -36,6 +37,7 @@ class StackedBRNN(nn.Module):
         self.drop = Dropper(dropout_p, variational)
         self.num_layers = num_layers
         self.concat_layers = concat_layers
+        self.ln_group = None
         width = hidden_size * (2 if bidirectional else 1)
         for i in range(num_layers):
             self.add_module(f"rnn_{i}", nn.LSTM(
@@ -44,12 +46,14 @@ class StackedBRNN(nn.Module):
             ))
 
     def forward(self, x: torch.Tensor, ln: bool = False,
-                return_list: bool = False):
+                return_list: bool = False, layout: str = "dense"):
+        """``layout``: the row layout of ``x``'s dim 0 for the dropout
+        (``Dropper``)."""
         hiddens: List[torch.Tensor] = [x]
         for i in range(self.num_layers):
-            out = getattr(self, f"rnn_{i}")(self.drop(hiddens[-1]))[0]
+            out = getattr(self, f"rnn_{i}")(self.drop(hiddens[-1], layout))[0]
             if ln:
-                out = whole_tensor_layer_norm(out)
+                out = whole_tensor_layer_norm(out, group=self.ln_group)
             hiddens.append(out)
         output = (
             torch.cat(hiddens[1:], dim=-1) if self.concat_layers

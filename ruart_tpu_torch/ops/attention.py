@@ -28,6 +28,12 @@ softmax and sums).
   backward recomputes through :func:`attention_rows_plain` (the JAX package
   has no backward kernel either).
 
+On a rank of a (dp, tp) mesh, :func:`sharded_fused_attention` runs the
+model-layout kernel on the rank's rows and local heads (the JAX
+``shard_map``'s per-shard call); :func:`sharded_fused_attention_global`
+runs the whole grid of shards in one process, and :func:`tp_kernel_ok` is
+the port's rule for when a tp degree keeps the kernel.
+
 Head-major layout (K3): :func:`flash_attention_plain`,
 :func:`flash_attention_cuda` (launch count in
 ``flash_attention_cuda.launches``) and the dispatching
@@ -328,3 +334,85 @@ def flash_attention(
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, bias)
     raise ValueError(f"flash_attention: no path for device {q.device}")
+
+
+def tp_kernel_ok(heads: int, dh: int, tp: int) -> bool:
+    """True when the kernel can run on ``heads / tp`` local heads per tp
+    shard: tp must divide the heads (a shard holds whole heads).
+
+    The JAX package also asks that a shard's head bundle fill the TPU's 128
+    lanes (``(heads / tp) % (128 / dh) == 0``) and otherwise sends the layer
+    to the einsum path: a TPU layout rule. The Hopper kernel (K1) runs any
+    number of heads of any width its build takes (dh a multiple of 8 up to
+    128): one block per (row, head) pair, the heads of a row read through
+    their column offset, with no packing of heads into lanes. So the port
+    keeps the kernel whenever tp divides the heads, where the JAX package
+    picks 'xla' (e.g. 4 heads of 8 at tp 2); the scores are the same.
+    ``dh`` is kept for the JAX signature."""
+    del dh
+    return tp <= 1 or heads % tp == 0
+
+
+def sharded_fused_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    heads: int, mesh, plain: bool = False,
+) -> torch.Tensor:
+    """:func:`fused_attention` on one rank of a (dp, tp) mesh: the
+    counterpart of the JAX ``shard_map``'s per-shard ``local``.
+
+    ``q``/``k``/``v`` are this rank's shard [B/dp, L, (H/tp)*dh] (its rows
+    of the batch, its tp slice of the head-major features: shard t owns
+    heads [t*H/tp, (t+1)*H/tp)); ``bias`` its rows [B/dp, L] or
+    [B/dp, L, L]; ``heads`` the GLOBAL head count. Heads are independent,
+    so the kernel runs on the local heads with no collective. In the model
+    each rank's projections hold only its heads (``BertSelfAttention``), so
+    q/k/v arrive contiguous and the kernel reads them without a copy.
+    ``plain`` takes :func:`attention_rows_plain` instead (the comparison
+    arm). Calls that launch the kernel (CUDA tensors) are counted in
+    ``sharded_fused_attention.launches``."""
+    tp = mesh.tp
+    assert heads % tp == 0, f"heads={heads} not divisible by tp={tp}"
+    local_heads = heads // tp
+    assert q.shape[2] % local_heads == 0 and bias.shape[0] == q.shape[0], (
+        f"local q {tuple(q.shape)} / bias {tuple(bias.shape)} do not hold "
+        f"{local_heads} heads of the same rows"
+    )
+    if plain:
+        return attention_rows_plain(q, k, v, bias, local_heads)
+    if q.is_cuda:
+        sharded_fused_attention.launches += 1
+    return fused_attention(q, k, v, bias, local_heads)
+
+
+sharded_fused_attention.launches = 0
+
+
+def sharded_fused_attention_global(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    heads: int, dp: int, tp: int, plain: bool = False,
+) -> torch.Tensor:
+    """The whole (dp, tp) grid of :func:`sharded_fused_attention` in one
+    process, on global tensors [B, L, H*dh]: as the JAX function's
+    ``shard_map`` slices its operands, each (d, t) shard is sliced out (the
+    column slice is copied to make it contiguous, as a rank's projection
+    makes it), run, and the results are concatenated. Asserts what the JAX
+    function asserts: B % dp == 0, heads % tp == 0 and D % tp == 0."""
+    from ruart_tpu_torch.parallel.mesh import Mesh
+
+    B, L, D = q.shape
+    assert B % dp == 0, f"batch {B} not divisible by dp={dp}"
+    assert heads % tp == 0 and D % tp == 0, (
+        f"heads={heads}/D={D} not divisible by tp={tp}"
+    )
+    rows, cols = B // dp, D // tp
+    out = torch.empty_like(q)
+    for d in range(dp):
+        r = slice(d * rows, (d + 1) * rows)
+        for t in range(tp):
+            c = slice(t * cols, (t + 1) * cols)
+            q_, k_, v_ = (x[r, :, c].contiguous() for x in (q, k, v))
+            out[r, :, c] = sharded_fused_attention(
+                q_, k_, v_, bias[r].contiguous(), heads,
+                Mesh.local(dp, tp, d, t), plain=plain,
+            )
+    return out

@@ -86,14 +86,18 @@ def _write(path: str, arrays: Dict[str, np.ndarray], meta: Optional[dict]):
 
 
 def save_checkpoint(path: str, model: nn.Module,
-                    optimizer: Optional[Optimizer] = None,
+                    optimizer=None,
                     meta: Optional[Dict[str, Any]] = None):
-    """Write the parameters (+ the optimizer state + json meta)."""
+    """Write the parameters (+ the optimizer state + json meta).
+    ``optimizer``: an :class:`Optimizer`, or its ``state_dict()`` (a mesh
+    save hands over the state gathered from the tp shards)."""
     arrays = {
         f"{PARAMS}{_SEP}{k}": v for k, v in flatten_tree(to_jax_params(model)).items()
     }
     if optimizer is not None:
-        for k, v in optimizer.state_dict().items():
+        if isinstance(optimizer, Optimizer):
+            optimizer = optimizer.state_dict()
+        for k, v in optimizer.items():
             arrays[f"{PORT_OPT}{_SEP}{k}"] = v
     _write(path, arrays, meta)
 

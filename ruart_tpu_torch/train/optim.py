@@ -27,6 +27,15 @@ same updates in PyTorch, written out as optax computes them
 
 A gradient that autograd left as ``None`` (a parameter the loss does not
 reach) counts as zeros, as JAX's dense gradients do.
+
+On a (dp, tp) mesh (``mesh``) every rank backpropagates its share of the
+global loss (``train_step``), and :meth:`Optimizer.step` first sums each
+gradient over the copies of its parameter — over dp for a tp shard
+(``param.tp_dim``), over the whole mesh for a replicated parameter — so
+every rank holds the gradient of the global-batch loss for what it holds.
+The clip's global norm is that of the FULL gradient: the squares of the
+shards are summed over tp, those of replicated parameters counted once.
+The row pinner maps the global rows it pins onto a vocab-sharded table.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ import torch
 from torch import nn
 
 from ruart_tpu_torch.models.fusion.spec import ModelSpec
+from ruart_tpu_torch.parallel.layers import tp_dim
 
 OPTIMIZERS = ("#", "ADAM", "ADAM2", "SGD")
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -67,6 +77,7 @@ class Optimizer:
         model: nn.Module,
         spec: ModelSpec,
         tune_partial: bool,
+        mesh=None,
     ):
         if opt_name not in OPTIMIZERS:
             raise ValueError(f"optimizer is wrong: {opt_name!r}")
@@ -77,6 +88,7 @@ class Optimizer:
         # 'ADAM' is adamax at a fixed 1e-3 whatever the conf says
         self.lr = 1e-3 if opt_name == "ADAM" else (lr if lr is not None else default_lr)
         self.grad_clip = float(grad_clip)
+        self.mesh = mesh
         frozen = frozen_roots(spec, tune_partial)
         self.params: Dict[str, nn.Parameter] = {
             name: p for name, p in model.named_parameters()
@@ -94,14 +106,45 @@ class Optimizer:
         for p in self.params.values():
             p.grad = None
 
+    def _sharded(self) -> List[bool]:
+        return [tp_dim(p) is not None for p in self.params.values()]
+
+    def _reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Sum every gradient over the copies of its parameter on the mesh:
+        tp shards over the dp group, replicated parameters over the mesh
+        (one flat all-reduce per group)."""
+        mesh = self.mesh
+        if mesh is None or mesh.size == 1:
+            return grads
+        out = list(grads)
+        for shard, group in ((True, mesh.dp_group), (False, mesh.group)):
+            idx = [i for i, s in enumerate(self._sharded()) if s == shard]
+            if group is None or not idx:
+                continue
+            flat = torch.cat([grads[i].reshape(-1) for i in idx])
+            torch.distributed.all_reduce(flat, group=group)
+            for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
+                out[i] = part.view_as(grads[i])
+        return out
+
     def _clipped_grads(self) -> List[torch.Tensor]:
-        grads = [
+        grads = self._reduce_grads([
             p.grad if p.grad is not None else torch.zeros_like(p)
             for p in self.params.values()
-        ]
+        ])
         if not grads:
             return grads
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norms = torch.stack(torch._foreach_norm(grads))
+        if self.mesh is not None and self.mesh.tp_group is not None:
+            # the shards' squares summed over tp; replicated ones once
+            sharded = torch.tensor(self._sharded(), device=norms.device)
+            sq = norms.square()
+            part = torch.where(sharded, sq, torch.zeros_like(sq)).sum()
+            torch.distributed.all_reduce(part, group=self.mesh.tp_group)
+            norm = (part + torch.where(sharded, torch.zeros_like(sq),
+                                       sq).sum()).sqrt()
+        else:
+            norm = torch.linalg.vector_norm(norms)
         scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                             self.grad_clip / norm)
         return torch._foreach_mul(grads, scale)
@@ -180,7 +223,9 @@ def make_row_pinner(
     """Returns f() that restores the fixed embedding rows of ``model`` in
     place after an update: rows >= ``tune_partial_rows`` and row 1 (<UNK>,
     the reference's Embedding padding_idx), captured from the parameters as
-    they are now (the reference keeps them as buffers, `SDNet.py:78-81`)."""
+    they are now (the reference keeps them as buffers, `SDNet.py:78-81`).
+    A vocab-sharded table (``vocab_start``) holds global rows
+    [vocab_start, vocab_start + its rows): the pinned rows map onto it."""
     if tune_partial_rows is None:
         return lambda: None
     tp = int(tune_partial_rows)
@@ -188,13 +233,19 @@ def make_row_pinner(
     with torch.no_grad():
         for name in ("glove_embed", "fast_embed"):
             if hasattr(model, name):
-                weight = getattr(model, name).weight
-                fixed[name] = (weight, weight[tp:].clone(), weight[1].clone())
+                emb = getattr(model, name)
+                weight = emb.weight
+                start = getattr(emb, "vocab_start", 0)
+                tail = min(max(tp - start, 0), weight.shape[0])
+                row1 = 1 - start if 0 <= 1 - start < weight.shape[0] else None
+                fixed[name] = (weight, tail, weight[tail:].clone(), row1,
+                               None if row1 is None else weight[row1].clone())
 
     @torch.no_grad()
     def pin():
-        for weight, tail, row1 in fixed.values():
-            weight[tp:] = tail
-            weight[1] = row1
+        for weight, tail, tail_rows, row1, row1_value in fixed.values():
+            weight[tail:] = tail_rows
+            if row1 is not None:
+                weight[row1] = row1_value
 
     return pin

@@ -6,10 +6,17 @@ pinning, all enqueued on the device. The loss comes back as a device
 tensor: the caller reads it when it needs the value (the trainer does so
 every ``log_every`` steps), never with a per-step host sync.
 
-``debug_nans`` (the ``DEBUG_NANS`` conf flag) checks ``torch.isfinite`` at
-the JAX package's checkify sites — targets, float batch inputs, scores,
-loss — and raises FloatingPointError with the same messages. Each check
-reads a flag on the host: debug only.
+``debug_nans`` (the ``DEBUG_NANS`` conf flag, and the ``debug_nans`` conf
+key through the CLIs) checks ``torch.isfinite`` at the JAX package's
+checkify sites — targets, float batch inputs, scores, loss — and raises
+FloatingPointError with the same messages; the eval step checks its
+scores. Each check reads a flag on the host: debug only.
+
+On a (dp, tp) mesh (``mesh``) the model computes this rank's rows of the
+global batch; the rank backpropagates its loss divided by the mesh size
+(the tp ranks of a dp slice compute the same loss), the optimizer sums the
+gradients over their copies, and the loss returned is the global batch's
+(the mean over dp). The eval step gathers the [B, C] scores over dp.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ruart_tpu_torch.models.fusion.model import RUArtModel
 from ruart_tpu_torch.train.optim import Optimizer
@@ -58,14 +66,23 @@ def _check_inputs(q, ocr, od, targets):
                 )
 
 
+def _check_scores(scores: torch.Tensor):
+    _check_finite(torch.isfinite(scores).all(),
+                  "NaN/Inf in scores (SDNetTrainer.py:339-347 / "
+                  "Layers.py:169,290 sentinel)")
+
+
 def make_train_step(
     loss_fn: Callable,
     row_pinner: Callable[[], None],
     debug_nans: bool = False,
+    mesh=None,
 ):
     """Returns ``step(state, q, ocr, od, targets) -> (state, loss)``;
     ``state`` is updated in place and returned, ``loss`` is a 0-d device
-    tensor."""
+    tensor. On a ``mesh`` the batch is this rank's slice (see the module
+    doc)."""
+    size = mesh.size if mesh is not None else 1
 
     def train_step(state: TrainState, q: Dict[str, torch.Tensor],
                    ocr: Dict[str, torch.Tensor], od: Dict[str, torch.Tensor],
@@ -77,34 +94,56 @@ def make_train_step(
         opt.zero_grad()
         scores = model(q, ocr, od)
         if debug_nans:
-            _check_finite(torch.isfinite(scores).all(),
-                          "NaN/Inf in scores (SDNetTrainer.py:339-347 / "
-                          "Layers.py:169,290 sentinel)")
+            _check_scores(scores)
         loss = loss_fn(scores, targets)
         if debug_nans:
             _check_finite(torch.isfinite(loss),
                           "NaN/Inf loss (SDNetTrainer.py:352-359 sentinel)")
-        loss.backward()
+        (loss / size if size > 1 else loss).backward()
         opt.step()
         row_pinner()
         state.step += 1
-        return state, loss.detach()
+        return state, dp_mean(loss.detach(), mesh)
 
     return train_step
 
 
-def make_eval_step(model: RUArtModel, loss_fn: Optional[Callable] = None):
+def dp_mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean of ``x`` over the dp ranks of ``mesh`` (``x`` itself on
+    one rank)."""
+    if mesh is None or mesh.dp_group is None:
+        return x
+    x = x.clone()
+    dist.all_reduce(x, group=mesh.dp_group)
+    return x / mesh.dp
+
+
+def dp_gather(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The dp ranks' row blocks of ``x`` concatenated in dp order."""
+    if mesh is None or mesh.dp_group is None:
+        return x
+    parts = [torch.empty_like(x) for _ in range(mesh.dp)]
+    dist.all_gather(parts, x.contiguous(), group=mesh.dp_group)
+    return torch.cat(parts)
+
+
+def make_eval_step(model: RUArtModel, loss_fn: Optional[Callable] = None,
+                   mesh=None, debug_nans: bool = False):
     """Returns ``step(q, ocr, od, targets) -> (scores, loss)`` in eval mode
-    without a graph; the loss is 0 without ``loss_fn`` or targets."""
+    without a graph; the loss is 0 without ``loss_fn`` or targets. On a
+    ``mesh`` the batch is this rank's slice: the scores of the global
+    batch are gathered over dp, the loss is its mean over dp."""
 
     def eval_step(q, ocr, od, targets):
         model.eval()
         with torch.no_grad():
             scores = model(q, ocr, od)
+            if debug_nans:
+                _check_scores(scores)
             if loss_fn is not None and targets is not None:
                 loss = loss_fn(scores, targets)
             else:
                 loss = torch.zeros((), device=scores.device)
-        return scores, loss
+        return dp_gather(scores, mesh), dp_mean(loss, mesh)
 
     return eval_step

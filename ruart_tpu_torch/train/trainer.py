@@ -16,12 +16,24 @@ stateful model, its checkpoints and training stay fp32, and
 weights. ``BF16`` trains and evaluates the encoder in bf16 over fp32
 weights (each Linear casts its weight per call, as flax does).
 ``fixed_answers`` reads the answer list and labels and ``img_feature`` the
-image features at construction, as the JAX trainer does. These JAX
-branches are not ported and raise NotImplementedError naming their conf
-key: mesh and multi-host execution (``coordinator_address``,
-``tensor_parallel``, several visible cards without ``no_mesh``), the
-``DEBUG`` data scan, and the fixed answers' PHOC vectors (``phoc`` in
-``ocr_embedding`` with ``fixed_answers``).
+image features at construction, as the JAX trainer does.
+
+Mesh execution (``ruart_tpu/train/trainer.py:241-393``): with
+``coordinator_address`` the trainer joins a ``torch.distributed`` world
+(``parallel/distributed.py``; one rank per card). With several ranks and
+no ``no_mesh`` it builds the (dp, tp) rank mesh (``tensor_parallel`` sets
+tp) when dp divides ``batch_size``, and otherwise stays on its one device
+and logs so, as the JAX trainer does. On the mesh every rank builds the
+same seeded full model, keeps its tp shard, collates the full global batch
+and keeps its dp slice (``_device_put``); rank 0 alone picks the run
+folder, preprocesses, and writes checkpoints (tp shards gathered to it)
+and ``submission.json``. A process that sees several cards without a
+world drives one of them; ``cli.main`` starts one rank per card.
+``debug_nans`` (the CLI key) and ``DEBUG_NANS`` check every step's outputs
+for NaN/Inf (``train_step``). These JAX branches are not ported and raise
+NotImplementedError naming their conf key: the ``DEBUG`` data scan, and
+the fixed answers' PHOC vectors (``phoc`` in ``ocr_embedding`` with
+``fixed_answers``).
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ from typing import Dict, Optional
 import msgpack
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ruart_tpu_torch.core.config import Config
 from ruart_tpu_torch.data.collate import Collator
@@ -51,11 +64,23 @@ from ruart_tpu_torch.data.pipeline import (
 from ruart_tpu_torch.data.preprocess import Preprocessor
 from ruart_tpu_torch.data.sampler import VQASampler
 from ruart_tpu_torch.eval.evaluator import evaluate, write_submission
+from ruart_tpu_torch.eval.sharded import make_sharded_eval, put_local_batch
 from ruart_tpu_torch.models.bert.config import BertConfig
 from ruart_tpu_torch.models.bert.convert import load_bert_params
 from ruart_tpu_torch.models.fusion.model import RUArtModel, install_embeddings
 from ruart_tpu_torch.models.fusion.spec import ModelSpec
+from ruart_tpu_torch.ops.attention import tp_kernel_ok
 from ruart_tpu_torch.ops.quant import quantize_bert_params
+from ruart_tpu_torch.parallel.distributed import (
+    fetch_local_first,
+    local_device_id,
+    make_hybrid_mesh,
+    maybe_initialize_distributed,
+    world_rank,
+    world_size,
+)
+from ruart_tpu_torch.parallel.layers import tp_dim
+from ruart_tpu_torch.parallel.mesh import shard_params, shard_tensor
 from ruart_tpu_torch.serve import resolve_device
 from ruart_tpu_torch.text.wordpiece import WordPieceTokenizer, build_demo_vocab
 from ruart_tpu_torch.train import checkpoint as ckpt
@@ -87,21 +112,23 @@ class Trainer:
                  device=None):
         self.cfg = cfg
         self.opt = cfg.opt
-        if "coordinator_address" in self.opt:
-            raise NotImplementedError(
-                "conf key coordinator_address: not ported to ruart_tpu_torch"
-            )
-        if int(self.opt.get("tensor_parallel", 1)) > 1:
-            raise NotImplementedError(
-                "conf key tensor_parallel: mesh execution is not ported"
-            )
-        self.device = resolve_device(device)
+        # join the world before anything sees the device (a no-op without
+        # the coordinator_address conf key — parallel/distributed.py)
+        device = resolve_device(device)
+        if maybe_initialize_distributed(self.opt, device.type) and (
+                device.type == "cuda"):
+            device = torch.device("cuda", local_device_id(self.opt))
+        self.device = device
+        self._n_proc = world_size()
+        self._rank0 = world_rank() == 0
         if (self.device.type == "cuda" and torch.cuda.device_count() > 1
-                and "no_mesh" not in self.opt):
-            raise NotImplementedError(
-                f"{torch.cuda.device_count()} visible cards: mesh execution "
-                "is not ported (set no_mesh, or show one card)"
-            )
+                and self._n_proc == 1 and "no_mesh" not in self.opt):
+            log.warning(
+                "%d visible cards: this process drives %s alone; "
+                "`python -m ruart_tpu_torch.cli.main` starts one rank per "
+                "card", torch.cuda.device_count(), self.device)
+        self.mesh = None
+        self._full_model = None
         self.opt.setdefault("datadir", ".")
         self.opt["FEATURE_FOLDER"] = os.path.join(
             self.opt["datadir"], "./source/data/", str(self.opt.get("source_dir", "")), ""
@@ -124,15 +151,22 @@ class Trainer:
     # -- folders (`BaseTrainer.py:48-69`) --------------------------------
     def get_save_folder(self, is_train: bool) -> str:
         if is_train:
+            # rank 0 picks the run folder; the other ranks take its pick
+            folder = [None]
             runid = 1
-            while True:
-                folder = os.path.join(self.opt["datadir"], "conf~", f"run_{runid}")
-                if not os.path.exists(folder):
-                    os.makedirs(folder)
-                    self.save_folder = folder
-                    log.info("Saving logs, model and evaluation in %s", folder)
-                    return folder
+            while self._rank0:
+                folder[0] = os.path.join(self.opt["datadir"], "conf~",
+                                         f"run_{runid}")
+                if not os.path.exists(folder[0]):
+                    os.makedirs(folder[0])
+                    log.info("Saving logs, model and evaluation in %s",
+                             folder[0])
+                    break
                 runid += 1
+            if self._n_proc > 1:
+                dist.broadcast_object_list(folder, src=0)
+            self.save_folder = folder[0]
+            return self.save_folder
         p = "/".join(str(self.opt["MODEL_PATH"]).split("/")[:2])
         self.save_folder = os.path.join(self.opt["datadir"], p)
         os.makedirs(self.save_folder, exist_ok=True)
@@ -140,7 +174,8 @@ class Trainer:
 
     def save_conf_copy(self):
         conf_file = self.opt.get("confFile")
-        if conf_file and os.path.isfile(conf_file) and self.save_folder:
+        if (conf_file and os.path.isfile(conf_file) and self.save_folder
+                and self._rank0):
             shutil.copyfile(conf_file, os.path.join(self.save_folder, "conf_copy"))
 
     # -- fixed answers (`SDNetTrainer.py:253-288`) -----------------------
@@ -177,6 +212,16 @@ class Trainer:
         self.image_features = load_image_features(self.opt)
         if self.image_features is not None:
             log.info("Image features have been loaded")
+
+    def _preprocess(self):
+        """``ensure_preprocessed`` on rank 0 first: the other ranks wait,
+        then find the files written."""
+        if self._rank0:
+            self.preproc.ensure_preprocessed()
+        if self._n_proc > 1:
+            dist.barrier()
+            self.preproc.ensure_preprocessed()
+        return self.preproc.load_data()
 
     # -- model setup (`SDNetTrainer.setup_model:290-328`) ----------------
     def setup_model(self, embeddings: Dict[str, np.ndarray]):
@@ -226,9 +271,9 @@ class Trainer:
                 _, state = load_bert_params(bert_path)
                 model.load_state_dict(state, strict=False)
                 log.info("Loaded pretrained BERT from %s", bert_path)
-        self.model = model.to(self.device)
         self.collator = Collator(cfg)
         self._h2d_slim = bool(int(cfg.opt.get("h2d_slim", 1)))
+        self._setup_mesh(model)
 
         tune_partial = (
             int(self.opt["tune_partial"]) if "TUNE_PARTIAL" in self.opt else None
@@ -240,33 +285,137 @@ class Trainer:
             self.model,
             self.spec,
             tune_partial is not None,
+            mesh=self.mesh,
         )
         self.loss_fn = make_loss_fn(str(self.opt.get("loss", "BCE_D1")))
         row_pinner = make_row_pinner(self.model, self.spec, tune_partial)
+        self._debug_nans = "DEBUG_NANS" in self.opt or "debug_nans" in self.opt
         self.train_step = make_train_step(
-            self.loss_fn, row_pinner, debug_nans="DEBUG_NANS" in self.opt,
+            self.loss_fn, row_pinner, debug_nans=self._debug_nans,
+            mesh=self.mesh,
         )
-        self.eval_step = make_eval_step(self.model, self.loss_fn)
+        if self.mesh is not None:
+            self.eval_step, _ = make_sharded_eval(
+                self.model, self.loss_fn, self.mesh, self.device,
+                self._debug_nans)
+        else:
+            self.eval_step = make_eval_step(self.model, self.loss_fn,
+                                            debug_nans=self._debug_nans)
         self.state = init_train_state(self.model, self.optimizer, cfg.seed)
         self.updates = 0
 
+    def _setup_mesh(self, model: RUArtModel):
+        """Mesh execution when several ranks run and dp divides the batch
+        (`trainer.py:241-311`): this rank's shard of the seeded full
+        ``model``, whose copy stays on the host for saves under tp.
+        Otherwise ``model`` itself, on this rank's device."""
+        self.mesh = None
+        self._full_model = None
+        if self._n_proc > 1 and "no_mesh" not in self.opt:
+            tp = int(self.opt.get("tensor_parallel", 1))
+            mesh = make_hybrid_mesh(tp=tp)
+            if self.cfg.batch_size % mesh.dp == 0:
+                self.mesh = mesh
+                log.info("Mesh execution: dp=%d tp=%d over %d ranks",
+                         mesh.dp, mesh.tp, self._n_proc)
+            else:
+                log.info(
+                    "batch %d not divisible by dp=%d, staying single-device"
+                    "%s", self.cfg.batch_size, mesh.dp,
+                    " (ModelParallel conf key noted)"
+                    if "ModelParallel" in self.opt else "")
+        if self.mesh is None:
+            self.model = model.to(self.device)
+            return
+        bert = self.spec.bert
+        heads = bert.num_attention_heads if bert is not None else None
+        if bert is not None:
+            dh = bert.hidden_size // heads
+            if tp_kernel_ok(heads, dh, self.mesh.tp):
+                log.info("tp=%d: the attention kernel runs on %d local heads "
+                         "per rank", self.mesh.tp, heads // self.mesh.tp)
+            else:
+                log.info("tp=%d does not divide %d heads: the attention "
+                         "layers stay whole on every rank", self.mesh.tp,
+                         heads)
+        with self.device:
+            local = RUArtModel(self.spec, self.mesh)
+        local.load_state_dict(shard_params(model.state_dict(), self.mesh,
+                                           heads))
+        self.model = local
+        if self.mesh.tp > 1:
+            self._full_model = model
+
     # -- checkpoint plumbing --------------------------------------------
+    def _host_model(self, skip: str = "") -> Optional[RUArtModel]:
+        """The model to write, on rank 0 (None elsewhere): under tp the
+        host copy filled with this rank's tp row's shards (gathered; every
+        rank takes part), else the model itself. Names starting with
+        ``skip`` are not gathered."""
+        if self._full_model is None:
+            return self.model if self._rank0 else None
+        full = {}
+        for name, p in self.model.named_parameters():
+            if not (skip and name.startswith(skip)):
+                full[name] = fetch_local_first(p, self.mesh, tp_dim(p),
+                                               materialize=self._rank0)
+        if not self._rank0:
+            return None
+        self._full_model.load_state_dict(
+            {k: torch.from_numpy(v) for k, v in full.items()}, strict=False)
+        return self._full_model
+
+    def _host_opt_state(self) -> Optional[Dict[str, np.ndarray]]:
+        """The optimizer state to write, on rank 0 (tp shards gathered)."""
+        state = self.optimizer.state_dict()
+        if self._full_model is None:
+            return state if self._rank0 else None
+        params = dict(self.model.named_parameters())
+        out = {"count": state["count"]}
+        for name, st in self.optimizer.state.items():
+            for slot, value in st.items():
+                out[f"{slot}/{name}"] = fetch_local_first(
+                    value, self.mesh, tp_dim(params[name]),
+                    materialize=self._rank0)
+        return out if self._rank0 else None
+
     def save(self, filename: str, epoch: int = 0):
+        model = self._host_model()
+        opt_state = self._host_opt_state()
+        if not self._rank0:
+            return  # every rank gathers, rank 0 writes
         meta = {
             "updates": self.updates,
             "train_loss": self.train_loss.state_dict(),
             "epoch": epoch,
             "config": {k: v for k, v in self.opt.items() if _json_safe(v)},
         }
-        ckpt.save_checkpoint(filename, self.model, self.optimizer, meta)
+        ckpt.save_checkpoint(filename, model, opt_state, meta)
 
     def save_for_predict(self, filename: str):
-        ckpt.save_for_predict(filename, self.model, {"updates": self.updates})
+        model = self._host_model(skip="Bert.")
+        if self._rank0:
+            ckpt.save_for_predict(filename, model, {"updates": self.updates})
 
     def load_model(self, path: str, with_optimizer: bool = True):
         """Key-intersection load of the parameters; the optimizer state too
-        unless ``with_optimizer`` is False (prediction never steps)."""
-        opt_arrays, jax_opt, meta = ckpt.load_checkpoint(path, self.model)
+        unless ``with_optimizer`` is False (prediction never steps). Under
+        tp the checkpoint loads into the host copy, and each rank keeps its
+        shards of it."""
+        target = self._full_model or self.model
+        opt_arrays, jax_opt, meta = ckpt.load_checkpoint(path, target)
+        if self._full_model is not None:
+            heads = self.spec.bert.num_attention_heads if self.spec.bert else None
+            self.model.load_state_dict(
+                shard_params(target.state_dict(), self.mesh, heads))
+            if opt_arrays is not None:
+                dims = {n: tp_dim(p) for n, p in self.model.named_parameters()}
+                opt_arrays = {
+                    k: v if k == "count" else shard_tensor(
+                        torch.from_numpy(v), dims.get(k.split("/", 1)[1]),
+                        self.mesh).numpy()
+                    for k, v in opt_arrays.items()
+                }
         if with_optimizer:
             ckpt.restore_optimizer(
                 self.optimizer, opt_arrays, jax_opt,
@@ -306,12 +455,23 @@ class Trainer:
         return host_batch(batch, self.spec, self._h2d_slim,
                           pin=self.device.type == "cuda")
 
+    def _device_put(self, batch):
+        """A :meth:`_host_put` batch -> (q, ocr, od, gt, extra) on this
+        rank's device. On the mesh (`trainer.py:318-353`) every rank holds
+        the full global batch and keeps its dp slice of the per-sample
+        rows; the batch-global tables stay whole, so L and every table
+        agree across ranks (``eval.sharded.put_local_batch``)."""
+        if self.mesh is None:
+            return device_put_batch(batch, self.device)
+        return put_local_batch(batch, self.mesh, self.device)
+
     # -- evaluation (`SDNetTrainer.evaluate:128-176`) --------------------
     def run_eval(self, dataset: VQADataset, batch_i: int, mode: str = "dev"):
         t0 = time.perf_counter()
         result = evaluate(
             self.eval_step, dataset, self.cfg, self.spec, self.device,
             self.collator, fixed_answers=self.fixed_answers,
+            device_put=self._device_put,
         )
         self.eval_history.append({
             "mode": mode, "batch": batch_i, "n": result["n"],
@@ -319,14 +479,18 @@ class Trainer:
             "ANLS": result["ANLS"], "ACC": result["ACC"],
         })
         if mode == "test":
-            write_submission(
-                result["res"], self.save_folder, result["n"],
-                self.cfg.batch_size,
-            )
+            if self._rank0:
+                # every rank decodes the gathered scores; one writes
+                write_submission(
+                    result["res"], self.save_folder, result["n"],
+                    self.cfg.batch_size,
+                )
             return result
         if mode == "dev" and self.save_folder:
-            with open(os.path.join(self.save_folder, "save_res_last.json"), "w") as f:
-                json.dump(result["save_res"], f, indent=2)
+            if self._rank0:
+                with open(os.path.join(self.save_folder,
+                                       "save_res_last.json"), "w") as f:
+                    json.dump(result["save_res"], f, indent=2)
             if result["ANLS"] > self.best_anls:
                 self.best_anls = result["ANLS"]
                 self.best_anls_batch = batch_i
@@ -351,8 +515,7 @@ class Trainer:
     def train(self, eval_every: int = 1500, log_every: int = 30):
         self.get_save_folder(is_train=True)
         self.save_conf_copy()
-        self.preproc.ensure_preprocessed()
-        vocab, char_vocab, embeddings = self.preproc.load_data()
+        vocab, char_vocab, embeddings = self._preprocess()
         self.vocab = vocab
         self.setup_model(embeddings)
         model_path = self._resume_path()
@@ -401,7 +564,7 @@ class Trainer:
 
         eval_seconds = 0.0
         for host in prefetch(it, size=2, host_put=self._host_put):
-            q, ocr, od, gt, extra = device_put_batch(host, self.device)
+            q, ocr, od, gt, extra = self._device_put(host)
             batch_i += 1
             if batch_i % eval_every == 0:
                 drain_losses(batch_i - 1)
@@ -433,8 +596,7 @@ class Trainer:
     # -- test inference (`SDNetTrainer.predict_for_test:231-251`) --------
     def predict_for_test(self):
         self.get_save_folder(is_train=False)
-        self.preproc.ensure_preprocessed()
-        vocab, char_vocab, embeddings = self.preproc.load_data()
+        vocab, char_vocab, embeddings = self._preprocess()
         self.setup_model(embeddings)
         test_raw = self._load_split("test")
         model_path = self._resume_path()
@@ -453,9 +615,10 @@ class Trainer:
             self.spec, bert=dataclasses.replace(self.spec.bert, quant="int8")
         )
         with self.device:
-            qmodel = RUArtModel(qspec)
+            qmodel = RUArtModel(qspec, self.mesh)
         qmodel.load_state_dict(quantize_bert_params(self.model.state_dict()))
-        self.eval_step = make_eval_step(qmodel, self.loss_fn)
+        self.eval_step = make_eval_step(qmodel, self.loss_fn, self.mesh,
+                                        self._debug_nans)
         log.info("INT8_BERT: encoder Linear layers quantized for inference")
 
 

@@ -29,7 +29,12 @@ def test_scan_sees_the_package():
                  "ruart_tpu_torch/utils/gctune.py", "chip_smoke.py",
                  "ruart_tpu_torch/data/image_features.py",
                  "ruart_tpu_torch/models/fusion/convert.py",
-                 "ruart_tpu_torch/models/bert/convert.py"):
+                 "ruart_tpu_torch/models/bert/convert.py",
+                 "ruart_tpu_torch/parallel/distributed.py",
+                 "ruart_tpu_torch/parallel/mesh.py",
+                 "ruart_tpu_torch/parallel/layers.py",
+                 "ruart_tpu_torch/parallel/launch.py",
+                 "ruart_tpu_torch/eval/sharded.py"):
         assert name in names
 
 

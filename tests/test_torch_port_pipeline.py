@@ -130,8 +130,24 @@ def test_trainer_refuses_unported_branches_by_name(key, value):
                            match="train36_imgid2idx.pkl|h5py"):
             Trainer(Config(opt), device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=key):
-        Trainer(Config(opt), device="cpu")
+    # mesh execution is ported: with coordinator_address the trainer joins
+    # a torch.distributed world (here of one rank, on a free port); one
+    # rank has no mesh whatever tensor_parallel asks, as one JAX device
+    # has none
+    import torch.distributed as dist
+
+    from ruart_tpu_torch.parallel.distributed import free_port
+
+    if key == "coordinator_address":
+        opt[key] = f"localhost:{free_port()}"
+    try:
+        trainer = Trainer(Config(opt), device="cpu")
+        assert dist.is_initialized() == (key == "coordinator_address")
+        trainer.setup_model({})
+        assert trainer.mesh is None
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_import_scan_covers_the_training_slice():
