@@ -130,6 +130,30 @@ non-zero when there is none, or when any phase fails:
    at tp 2 a full checkpoint that rank 0 alone writes, which gives a
    single-process trainer the ranks' scores within 1e-4. The wall time is
    printed; two ranks sharing one card measure correctness, not speed.
+11. The last modules, at the width of phase 2. (a) g++ builds the PHOC
+   library and the fastcollate extension (seconds printed; the collator
+   must run natively); the native PHOC encoder over 5,000 words (the
+   engine's vocabulary and seeded words) byte-equal to its Python oracle,
+   and ``phoc_from_char_ids`` on the card byte-equal to it; the 40
+   requests' batches collated natively byte-equal to the numpy path, and
+   host featurize + collate ms per pass with each, in turns. (b) ``PHOC``
+   (``phoc`` in ``ocr_embedding``, a 5,000 x 604 table): the 40 requests
+   through ``predict`` with the kernel and with the plain path, scores
+   within 1e-4; one train step of the shipped train conf with ``PHOC`` and
+   ``fixed_answers`` (4,000 answers) through the trainer, preprocessed
+   anew (the preprocessor writes the table): ``fixed_answers_phoc``
+   [4000, 604] byte-equal to the oracle, a finite loss on seeded targets
+   of the head's width. (c) BERT-base over 4 rows of L 1,024 with a key
+   mask through ``encode_chunked`` (2 chunks of 512), kernel against
+   plain within 1e-4; K1 timed at the chunk's shape beside SDPA and its
+   bound; ``BertWordEncoder`` on a serving batch's question rows, kernel
+   against plain within 1e-4. (d) ``forward_with_attention`` on a serving
+   batch: scores within 1e-6 of the forward ``predict`` runs, every alpha
+   finite with rows summing to 1, and as many device kernels per forward
+   with recording off as with it on. (e) One forward inside
+   ``profiler_trace``: its trace names K1's kernel. Every path runs with
+   the counts set to 0 and must launch K1 12 times per batch, chunk or
+   step.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.
@@ -411,8 +435,9 @@ def time_kernel(att, shape, dtype_name="float32"):
                  nbytes, 4 * B * H * L * L * dh, rate)
 
 
-def build_engine(attention_impl, params=None, **opts):
-    """The flagship serving engine on the card (``opts``: more conf keys)."""
+def build_engine(attention_impl, params=None, device=None, **opts):
+    """The flagship serving engine on the card, or on ``device``
+    (``opts``: more conf keys)."""
     import torch
 
     from ruart_tpu_torch.core.presets import stvqa_config
@@ -441,7 +466,7 @@ def build_engine(attention_impl, params=None, **opts):
         params = RUArtModel(spec).init_weights(
             torch.Generator().manual_seed(0)
         ).state_dict()
-    return InferenceEngine(cfg, spec, params, vocab, tok), params
+    return InferenceEngine(cfg, spec, params, vocab, tok, device=device), params
 
 
 def requests():
@@ -1592,6 +1617,353 @@ def mesh_ranks(att, work, engine, params, kernel_scores, device="cuda"):
     return sum(r[label]["sharded"] for r in ranks for label in ("dp2", "tp2"))
 
 
+# -- phase 11: PHOC, native host code, chunked BERT, attention maps ---------
+
+PHOC_OCR_EMBEDDING = "phoc,fasttext,pos,ent,bert"
+N_PHOC_WORDS = 5000          # the serve configuration's vocabulary rows
+CHUNKED = (4, 1024)          # rows x L through encode_chunked: 2 chunks
+CHUNK_SHAPE = (4, 512, 12, 64, False)  # K1 on one chunk: key bias
+
+
+def same_bytes(a, b) -> bool:
+    """Nested dicts / tuples / lists of numpy arrays equal byte for byte
+    (dtype and shape included)."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(same_bytes(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_bytes(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and a.shape == b.shape and a.tobytes() == b.tobytes())
+    return a == b
+
+
+def phoc_words(vocab):
+    """The phase's 5,000 words: the engine's vocabulary, then seeded words
+    with digits, case and punctuation that the encoder filters out."""
+    words = list(vocab)[:N_PHOC_WORDS]
+    for i in range(N_PHOC_WORDS - len(words)):
+        w = _letters(i) + str(i % 97)
+        words.append(w.upper() + "-!" if i % 3 == 0 else w)
+    return words
+
+
+def native_host(engine, reqs, device="cuda"):
+    """Phase 11 (a): build both native libraries with g++ (timed), the
+    native PHOC encoder against its Python oracle and the tensor op on
+    ``device`` over the 5,000 words (byte for byte), the serving batches
+    collated natively against the numpy path (byte for byte), and host
+    featurize + collate ms per pass with each, in turns. Returns the
+    words."""
+    import numpy as np
+    import torch
+
+    from ruart_tpu_torch.data import collate
+    from ruart_tpu_torch.native import build
+    from ruart_tpu_torch.ops.phoc import encode_char_ids, phoc_from_char_ids
+    from ruart_tpu_torch.text import phoc
+
+    t0 = time.perf_counter()
+    build.ensure_built(force=True)
+    phoc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    build.load_fastcollate(force=True)
+    fc_s = time.perf_counter() - t0
+    collate._fc.cache_clear()  # the collator loads the fresh build
+    active = collate.native_active()
+    log(f"phase 11 (a): g++ built {build.PHOC_LIBRARY.name} in {phoc_s:.2f} s "
+        f"and {build.FASTCOLLATE_LIBRARY.name} in {fc_s:.2f} s; native "
+        f"collate active: {active}")
+    if not active:
+        raise AssertionError("phase 11: the native collator is not active")
+
+    words = phoc_words(engine._pre.train_vocab)
+    t0 = time.perf_counter()
+    native = phoc.build_phoc_batch(words)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    oracle = np.stack([phoc.build_phoc_py(w) for w in words])
+    max_len = max(len(phoc.filter_token(w)) for w in words)
+    ids, lengths = encode_char_ids(words, max_len)
+    on_device = phoc_from_char_ids(torch.from_numpy(ids).to(device),
+                                   torch.from_numpy(lengths).to(device))
+    got = on_device.cpu().numpy()
+    ok = (native.shape == (N_PHOC_WORDS, 604)
+          and native.tobytes() == oracle.tobytes()
+          and got.tobytes() == native.tobytes())
+    log(f"phase 11 (a): PHOC of {len(words)} words ({int(native.sum())} set "
+        f"bits): native {native_ms:.1f} ms, byte-equal to the Python oracle "
+        f"{native.tobytes() == oracle.tobytes()}; phoc_from_char_ids on "
+        f"{on_device.device} (max_len {max_len}) byte-equal to the native "
+        f"batch {got.tobytes() == native.tobytes()}")
+    if not ok:
+        raise AssertionError("phase 11: the PHOC encoders disagree")
+
+    fast = collate._fc
+
+    def numpy_path(fn):
+        collate._fc = lambda: None
+        try:
+            return fn()
+        finally:
+            collate._fc = fast
+
+    def batches():
+        return [b for _, _, b in engine._collated_batches(reqs)]
+
+    native_b, numpy_b = batches(), numpy_path(batches)
+    equal = same_bytes(native_b, numpy_b)
+    times = {"native": [], "numpy": []}
+    for i in range(6):
+        arm = ("native", "numpy")[(i + i // 2) % 2]  # n, u, u, n, n, u
+        t0 = time.perf_counter()
+        if arm == "native":
+            batches()
+        else:
+            numpy_path(batches)
+        times[arm].append((time.perf_counter() - t0) * 1e3)
+    log(f"phase 11 (a): {len(native_b)} serving batches collated natively "
+        f"byte-equal to the numpy path: {equal}; host featurize + collate per "
+        f"pass of {N_REQUESTS} requests, in turns: native "
+        f"{[round(x, 1) for x in times['native']]} ms (median "
+        f"{statistics.median(times['native']):.1f}), numpy "
+        f"{[round(x, 1) for x in times['numpy']]} ms (median "
+        f"{statistics.median(times['numpy']):.1f}) (smoke reading, not a cell)")
+    if not equal:
+        raise AssertionError("phase 11: native and numpy collate disagree")
+    return words
+
+
+def phoc_paths(words, reqs, root, conf, drive, device="cuda"):
+    """Phase 11 (b): ``PHOC`` at the width of phase 2: the 40 requests
+    through ``predict`` with the kernel and with the plain path (scores
+    within 1e-4, K1 12 times per batch), then one train step of the
+    shipped train conf with ``PHOC`` and ``fixed_answers`` (4,000 answers)
+    through the trainer: the table written by its preprocessor, the fixed
+    answers' PHOC vectors against the oracle, a finite loss."""
+    import numpy as np
+    import torch
+
+    from ruart_tpu_torch.cli.main import build_config
+    from ruart_tpu_torch.text import phoc
+    from ruart_tpu_torch.train.trainer import Trainer
+
+    n_batches = -(-N_REQUESTS // 16)
+    opts = dict(PHOC=True, ocr_embedding=PHOC_OCR_EMBEDDING)
+    engine, params = build_engine("auto", None, device=device, **opts)
+    params["phoc_embed.weight"] = torch.from_numpy(
+        phoc.build_phoc_embedding(words))
+    with torch.no_grad():
+        engine.model.phoc_embed.weight.copy_(params["phoc_embed.weight"])
+    plain, _ = build_engine("plain", params, device=device, **opts)
+    table = engine.model.phoc_embed.weight
+    out = drive("(b) PHOC predict", lambda: engine.predict(reqs), n_batches,
+                exact=True)
+    got = batch_scores(engine, reqs)
+    diff = max_diff(got, batch_scores(plain, reqs))
+    rows = all(bool(s.isfinite().all())
+               and (s.sum(-1) - 1).abs().max().item() < 1e-4 for s in got)
+    log(f"phase 11 (b): PHOC serving: table {tuple(table.shape)}, {len(out)} "
+        f"answers (e.g. {out[0]['answer']!r}), scores {tuple(got[0].shape)} per "
+        f"batch, kernel vs plain max |diff| {diff:.3e} (tol {SCORE_TOL:g}), "
+        f"finite softmax rows {rows}")
+    if not (diff <= SCORE_TOL and rows and len(out) == N_REQUESTS):
+        raise AssertionError("phase 11: the PHOC kernel and plain paths "
+                             "disagree")
+    del engine, plain, params
+
+    # the shipped train conf with PHOC and fixed_answers, preprocessed anew
+    # (the preprocessor writes the PHOC table into the meta)
+    conf_phoc = os.path.join(root, "conf_train_phoc")
+    with open(conf) as f, open(conf_phoc, "w") as g:
+        g.write(f"PHOC\nocr_embedding\t{PHOC_OCR_EMBEDDING}\nfixed_answers\n"
+                f"fixed_answers_folder\t{root}\n"
+                f"FEATURE_FOLDER\t{root}/features_phoc\n" + f.read())
+    t0 = time.time()
+    trainer = Trainer(build_config(conf_phoc), device=device)
+    vocab, _, embeddings = trainer._preprocess()
+    trainer.vocab = vocab
+    trainer.setup_model(embeddings)
+    fixed = trainer.fixed_answers_entry["fixed_answers_phoc"]
+    oracle = np.stack([phoc.build_phoc_py(a) for a in trainer.fixed_answers])
+    batch = train_batch_on_device(trainer)
+    q, ocr, od = batch[:3]
+    # the dataset's labels are one column short of the fixed-answers head
+    # in both packages (ROADMAP, Queue 3): seeded targets of the head's width
+    with torch.no_grad():
+        width = trainer.model.eval()(q, ocr, od).shape[1]
+    rng = np.random.RandomState(11)
+    gt = np.zeros((trainer.cfg.batch_size, width), np.float32)
+    gt[np.arange(len(gt)), rng.randint(0, width, len(gt))] = 1.0
+    gt = torch.from_numpy(gt).to(trainer.device)
+    trainer.state, loss = drive(
+        "(b) PHOC + fixed_answers train step",
+        lambda: trainer.train_step(trainer.state, q, ocr, od, gt), 1,
+        exact=True)
+    loss = float(loss)
+    phoc_rows = tuple(trainer.model.phoc_embed.weight.shape)
+    log(f"phase 11 (b): PHOC + fixed_answers train step: preprocessed table "
+        f"{tuple(embeddings['phoc_embedding'].shape)} (model {phoc_rows}), "
+        f"fixed_answers_phoc {tuple(fixed.shape)} byte-equal to the oracle "
+        f"{fixed.tobytes() == oracle.tobytes()}, scores width {width}, loss "
+        f"{loss:.6f}, {time.time() - t0:.1f} s with preprocessing")
+    if not (fixed.shape == (N_FIXED, 604) and fixed.tobytes() == oracle.tobytes()
+            and math.isfinite(loss)
+            and embeddings["phoc_embedding"].shape[1] == 604):
+        raise AssertionError("phase 11: the PHOC train step failed")
+    del trainer, batch
+
+
+def bert_weights(params):
+    """The BERT-base encoder's entries of the serving model's state."""
+    return {k[len("Bert."):]: v for k, v in params.items()
+            if k.startswith("Bert.")}
+
+
+def chunked_bert(att, params, engine, reqs, drive, device="cuda"):
+    """Phase 11 (c): BERT-base over 4 rows of L 1,024 with a key mask
+    through ``encode_chunked`` (2 chunks of 512), kernel against plain
+    (1e-4; every chunk keeps a valid key), K1 timed at the chunk's shape,
+    and ``BertWordEncoder`` on one serving batch's question rows, kernel
+    against plain (1e-4). Returns K1's timing at the chunk's shape."""
+    import torch
+
+    from ruart_tpu_torch.models.bert.config import BertConfig
+    from ruart_tpu_torch.models.bert.model import (
+        BertModel,
+        BertWordEncoder,
+        encode_chunked,
+    )
+
+    weights = bert_weights(params)
+    models = {}
+    for impl in ("auto", "plain"):
+        with torch.device(device):
+            models[impl] = BertModel(BertConfig(attention_impl=impl))
+        models[impl].load_state_dict(weights)
+        models[impl].eval()
+    rows, L = CHUNKED
+    g = torch.Generator().manual_seed(12)
+    lens = torch.randint(L // 2 + 1, L + 1, (rows,), generator=g)
+    mask = (torch.arange(L)[None] < lens[:, None]).long()
+    ids = torch.randint(1000, 30000, (rows, L), generator=g) * mask
+    ids, mask = ids.to(device), mask.to(device)
+    with torch.inference_mode():
+        got = drive("(c) encode_chunked", lambda: encode_chunked(
+            models["auto"], ids, mask, 512), 2, exact=True)
+        want = encode_chunked(models["plain"], ids, mask, 512)
+    diff = (got - want).abs().max().item()
+    log(f"phase 11 (c): encode_chunked over {rows} rows x L {L} (lengths "
+        f"{lens.tolist()}): {tuple(got.shape)}, kernel vs plain max |diff| "
+        f"{diff:.3e} (tol {SCORE_TOL:g})")
+    if not (diff <= SCORE_TOL and bool(got.isfinite().all())):
+        raise AssertionError("phase 11: encode_chunked kernel and plain "
+                             "disagree")
+    timing = time_kernel(att, CHUNK_SHAPE) if device == "cuda" else None
+    if timing is not None:
+        log_timing("K1 at the chunk's shape", CHUNK_SHAPE, timing)
+
+    q = next(iter(engine._collated_batches(reqs)))[2][0]
+    args = [torch.from_numpy(q[k]).long().to(device)
+            for k in ("bert", "bert_mask", "bert_offsets")]
+    args.append((torch.from_numpy(q["glove"]) != 0).long().to(device))
+    encoders = {}
+    for impl in ("auto", "plain"):
+        with torch.device(device):
+            enc = BertWordEncoder(BertConfig(attention_impl=impl))
+        enc.load_state_dict({**{f"bert.{k}": v for k, v in weights.items()},
+                             "alphaBERT": params["alphaBERT"],
+                             "gammaBERT": params["gammaBERT"]})
+        encoders[impl] = enc.eval()
+    with torch.inference_mode():
+        got = drive("(c) BertWordEncoder", lambda: encoders["auto"](*args), 1,
+                    exact=True)
+        want = encoders["plain"](*args)
+    diff = (got - want).abs().max().item()
+    log(f"phase 11 (c): BertWordEncoder on a serving batch's question rows "
+        f"{tuple(args[0].shape)} -> {tuple(got.shape)}, kernel vs plain max "
+        f"|diff| {diff:.3e} (tol {SCORE_TOL:g})")
+    if not (diff <= SCORE_TOL and bool(got.isfinite().all())):
+        raise AssertionError("phase 11: BertWordEncoder kernel and plain "
+                             "disagree")
+    return timing
+
+
+def device_kernels(fn) -> int:
+    """Device kernels ``fn`` launches (torch.profiler; copies and memsets
+    left out). The device finishes inside the profiled region: a kernel
+    still running when the profiler stops may go unrecorded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")) == "DeviceType.CUDA"
+               and not e.key.startswith(("Memcpy", "Memset")))
+
+
+def attention_maps(engine, reqs, root, drive, device="cuda"):
+    """Phase 11 (d): ``forward_with_attention`` on one serving batch:
+    scores equal to ``predict``'s forward (1e-6), every alpha finite with
+    rows summing to 1; a forward with recording off launches as many
+    kernels as one before recording and one during it. (e): one forward
+    inside ``profiler_trace``: the trace it writes names K1's kernel."""
+    import torch
+
+    from ruart_tpu_torch.models.fusion.introspect import forward_with_attention
+    from ruart_tpu_torch.utils.timing import profiler_trace
+
+    batch = [b[:3] for _, _, b in engine._collated_batches(reqs)][:1]
+    blocks = [engine.to_device(b) for b in batch[0]]
+    want = batch_scores(engine, reqs, batch)[0]
+    with torch.inference_mode():
+        scores, alphas = drive(
+            "(d) forward_with_attention",
+            lambda: forward_with_attention(engine.model, *blocks), 1,
+            exact=True)
+    diff = (scores - want).abs().max().item()
+    sums = max((a.sum(-1) - 1).abs().max().item() for a in alphas.values())
+    finite = all(bool(a.isfinite().all()) for a in alphas.values())
+    counts, first = {}, None
+    if device == "cuda":
+        with torch.inference_mode():
+            run = lambda: engine.model(*blocks)  # noqa: E731
+            # printed, not compared: without the synchronize in
+            # device_kernels one run counted 736 kernels and copies here
+            # against 744 in the two counts after it
+            first = device_kernels(run)
+            counts["off, before"] = device_kernels(run)
+            counts["recording"] = device_kernels(
+                lambda: forward_with_attention(engine.model, *blocks))
+            counts["off, after"] = device_kernels(run)
+    log(f"phase 11 (d): {len(alphas)} attention maps "
+        f"({', '.join(sorted(alphas)[:4])}, ...), scores vs predict's forward "
+        f"max |diff| {diff:.3e} (tol 1e-6), alphas finite {finite}, worst "
+        f"|row sum - 1| {sums:.3e}; device kernels per forward {counts} "
+        f"(first profiled forward {first})")
+    if not (diff <= 1e-6 and finite and sums <= 1e-5 and len(alphas) >= 6
+            and len(set(counts.values())) <= 1):
+        raise AssertionError("phase 11: forward_with_attention disagrees")
+
+    logdir = os.path.join(root, "trace")
+
+    def traced():
+        with torch.inference_mode(), profiler_trace(logdir):
+            engine.model(*blocks)
+
+    drive("(e) forward in profiler_trace", traced, 1, exact=True)
+    traces = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
+    with open(os.path.join(logdir, traces[0])) as f:
+        named = "attention_kernel" in f.read()
+    log(f"phase 11 (e): profiler_trace wrote {traces}; names K1's kernel "
+        f"(attention_kernel): {named}")
+    if not (len(traces) == 1 and (named or device != "cuda")):
+        raise AssertionError("phase 11: the trace does not name K1's kernel")
+
+
 def main() -> int:
     try:
         import torch
@@ -1866,17 +2238,34 @@ def main() -> int:
         sharded_launches = mesh_ranks(att, root, engine, params, got)
         del engine
         log(f"phase 10 ok in {time.time() - t0:.1f} s")
+
+        # -- phase 11: PHOC, native host code, chunked BERT, attention maps --
+        t0 = time.time()
+        n_phase10 = len(driven)
+        engine, _ = build_engine("auto", params)
+        words = native_host(engine, reqs)
+        phoc_paths(words, reqs, root, conf, drive)
+        k1_chunk = chunked_bert(att, params, engine, reqs, drive)
+        attention_maps(engine, reqs, root, drive)
+        del engine
+        for label, launched, n in driven[n_phase10:]:
+            log(f"  phase 11 path {label}: {n} batches or steps, launches "
+                f"{launched}")
+        log(f"phase 11 ok in {time.time() - t0:.1f} s (K1 at the chunk's "
+            f"shape {k1_chunk[0]:.4f} ms)")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    stack_counts, branch_counts = (
+    stack_counts, branch_counts, phase11_counts = (
         {k: sum(c[k] for _, c, _ in paths) for k in serve_counts}
-        for paths in (driven[:n_phase8], driven[n_phase8:]))
+        for paths in (driven[:n_phase8], driven[n_phase8:n_phase10],
+                      driven[n_phase10:]))
     main_path = {k: serve_counts[k] + train_counts[k] + predict_counts[k]
-                 + stack_counts[k] + branch_counts[k] for k in serve_counts}
+                 + stack_counts[k] + branch_counts[k] + phase11_counts[k]
+                 for k in serve_counts}
     log(f"launches on the main paths: serve {serve_counts}, train "
         f"{train_counts}, predict {predict_counts}, serving stack "
-        f"{stack_counts}, phase 9 {branch_counts}")
+        f"{stack_counts}, phase 9 {branch_counts}, phase 11 {phase11_counts}")
     log(f"total {time.time() - t_start:.1f} s")
     log(card)
     source = "ruart_tpu_torch/csrc/attention.cu"

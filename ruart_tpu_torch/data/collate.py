@@ -6,14 +6,20 @@ reference collate (`Utils/VQA_Dataset.py:439-517`): zero padding, masks are
 id != 0, `num`/`len` carry candidate/word counts. Unlike the reference
 (which crashes on over-long items), inputs are truncated to the conf caps.
 
-Copy of ``ruart_tpu/data/collate.py`` on its numpy code path: the native
-``fastcollate`` loops of the JAX package are host speed only and emit the
-same arrays.
+Copy of ``ruart_tpu/data/collate.py``. The ragged->fixed fill loops run
+in the native ``fastcollate`` extension (``native/fastcollate.cc``, built
+with g++ at the first collate), ~10-50x less interpreter dispatch than
+the numpy walks, which stay as the fallback and as the oracle the tests
+hold the extension to. ``RUART_NO_NATIVE=1`` opts out; a failed build
+logs the compiler's error and keeps the numpy path
+(:func:`native_active` says which runs).
 """
 
 from __future__ import annotations
 
+import functools
 import logging
+import os
 from itertools import chain
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -22,6 +28,26 @@ import numpy as np
 from ruart_tpu_torch.core.config import Config
 
 log = logging.getLogger(__name__)
+
+
+@functools.lru_cache(maxsize=1)
+def _fc():
+    """The fastcollate extension, built and loaded at the first call, or
+    None (opted out, or the build or load failed)."""
+    if os.environ.get("RUART_NO_NATIVE"):
+        return None
+    from ruart_tpu_torch.native.build import load_fastcollate
+
+    try:
+        return load_fastcollate()
+    except (RuntimeError, ImportError, OSError) as e:
+        log.warning("native fastcollate unavailable, collating with numpy: %s", e)
+        return None
+
+
+def native_active() -> bool:
+    """Whether the collator runs the native fill loops."""
+    return _fc() is not None
 
 # every batch key the dedup/packing paths can attach to a candidate block
 # (serve-time dense fallbacks strip exactly this set)
@@ -178,6 +204,11 @@ def _halving_ladder(cap: int, steps: int, align: int, floor: int) -> Tuple[int, 
 
 def _pad_ids(rows: Sequence[Sequence[int]], max_len: int) -> np.ndarray:
     n = len(rows)
+    fc = _fc()
+    if fc is not None and isinstance(rows, list):
+        out = np.zeros((n, max_len), dtype=np.int32)
+        fc.pad_rows(rows, out, np.zeros(n, np.int64), max_len)
+        return out
     rows = [r[:max_len] if len(r) > max_len else r for r in rows]
     lens = np.fromiter(map(len, rows), np.int64, n)
     vals = np.fromiter(chain.from_iterable(rows), np.int32, int(lens.sum()))
@@ -217,6 +248,14 @@ def unique_rows(flat: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     risk) and O(rows) instead of O(rows log rows)."""
     n = flat.shape[0]
     flat = np.ascontiguousarray(flat)
+    fc = _fc()
+    if fc is not None and n:
+        inverse = np.empty(n, np.int64)
+        firsts = np.empty(n, np.int64)
+        k = fc.unique_rows(
+            flat, n, flat.shape[1] * flat.itemsize, inverse, firsts
+        )
+        return flat[firsts[:k]], inverse
     table: Dict[bytes, int] = {}
     inverse = np.empty(n, np.int64)
     first_rows = []
@@ -418,11 +457,18 @@ class Collator:
                 full[row_idx] = compact
             return full.reshape((B, max_num) + trail)
 
+        fc = _fc()
+
         def fill_ids(key: str, L: int):
-            """-> ([R, L] compact rows, capped lengths). A C-level value
-            walk: chain.from_iterable instead of a nested python genexpr
-            (the per-value generator frames dominated collate at batch
-            256)."""
+            """-> ([R, L] compact rows, capped lengths). Native single-pass
+            fill when the extension is available, else a C-level value walk:
+            chain.from_iterable instead of a nested python genexpr (the
+            per-value generator frames dominated collate at batch 256)."""
+            if fc is not None:
+                compact = np.zeros((R, L), np.int32)
+                lens = np.zeros(R, np.int64)
+                fc.fill_ids(items_flat, key, compact, lens, L)
+                return compact, lens
             rows = [it[key] for it in items_flat]
             lens = np.fromiter(map(len, rows), np.int64, R)
             if (lens > L).any():
@@ -443,6 +489,8 @@ class Collator:
         # all the word-id list) — pack each distinct sequence once
         filled: Dict[str, tuple] = {}
         def alias_all(k1, k2):
+            if fc is not None:
+                return fc.alias_all(items_flat, k1, k2)
             return all(it[k1] is it[k2] for it in items_flat)
 
         scattered: Dict[str, np.ndarray] = {}
@@ -472,14 +520,18 @@ class Collator:
         out["len"] = scatter(
             (len_arr if len_arr is not None else np.zeros(0)).astype(np.int32)
         )
-        pos = (
-            np.fromiter(
-                chain.from_iterable(it["position"] for it in items_flat),
-                np.float32, R * 8,
-            ).reshape(R, 8)
-            if R
-            else np.zeros((0, 8), np.float32)
-        )
+        if fc is not None:
+            pos = np.zeros((R, 8), np.float32)
+            fc.fill_f32(items_flat, "position", pos, 8)
+        else:
+            pos = (
+                np.fromiter(
+                    chain.from_iterable(it["position"] for it in items_flat),
+                    np.float32, R * 8,
+                ).reshape(R, 8)
+                if R
+                else np.zeros((0, 8), np.float32)
+            )
         out["position"] = scatter(pos, 8)
 
         if has_bert:
@@ -487,24 +539,31 @@ class Collator:
             out["bert"] = scatter(compact_bert, max_bert_len)
             # offsets: [(st, ed)] pairs per candidate word, clipped to the
             # bert length cap, ed >= st
-            offs = [it["bert_offsets"] for it in items_flat]
-            counts = np.fromiter(map(len, offs), np.int64, R)
-            if (counts > max_len).any():
-                offs = [
-                    o[:max_len] if n > max_len else o
-                    for o, n in zip(offs, counts)
-                ]
-                np.minimum(counts, max_len, out=counts)
-            pairs = np.fromiter(
-                chain.from_iterable(chain.from_iterable(offs)),
-                np.int32,
-                int(counts.sum()) * 2,
-            ).reshape(-1, 2)
-            st = np.minimum(pairs[:, 0], max_bert_len - 1)
-            ed = np.maximum(np.minimum(pairs[:, 1], max_bert_len), st)
-            compact_off = np.zeros((R, max_len, 2), np.int32)
-            wmask = np.arange(max_len)[None, :] < counts[:, None]
-            compact_off[wmask] = np.stack([st, ed], axis=1)
+            if fc is not None:
+                compact_off = np.zeros((R, max_len, 2), np.int32)
+                fc.fill_offsets(
+                    items_flat, "bert_offsets", compact_off,
+                    np.zeros(R, np.int64), max_len, max_bert_len,
+                )
+            else:
+                offs = [it["bert_offsets"] for it in items_flat]
+                counts = np.fromiter(map(len, offs), np.int64, R)
+                if (counts > max_len).any():
+                    offs = [
+                        o[:max_len] if n > max_len else o
+                        for o, n in zip(offs, counts)
+                    ]
+                    np.minimum(counts, max_len, out=counts)
+                pairs = np.fromiter(
+                    chain.from_iterable(chain.from_iterable(offs)),
+                    np.int32,
+                    int(counts.sum()) * 2,
+                ).reshape(-1, 2)
+                st = np.minimum(pairs[:, 0], max_bert_len - 1)
+                ed = np.maximum(np.minimum(pairs[:, 1], max_bert_len), st)
+                compact_off = np.zeros((R, max_len, 2), np.int32)
+                wmask = np.arange(max_len)[None, :] < counts[:, None]
+                compact_off[wmask] = np.stack([st, ed], axis=1)
             out["bert_offsets"] = scatter(compact_off, max_len, 2)
 
             out["bert_mask"] = (out["bert"] != 0).astype(np.int32)

@@ -14,11 +14,14 @@ preprocessed  : annotated_question {word, pos_id, ent_id, wordid, ...},
                 candidates with merged boxes, vocabulary ids
 
 
-Left out of this copy: PHOC embeddings (built by native C++; the ``PHOC``
-conf key raises) and spaCy — tokenization and tagging always use the
-rule-based featurizer (``ruart_tpu_torch.text.featurizer``), so the tags
-equal those of a spaCy-free JAX run. As in the JAX package, deterministic
-hashed word vectors stand in when no GloVe/fastText files are configured.
+meta          : vocab, char_vocab, glove/fasttext/phoc embedding matrices
+
+As in the JAX package, tokenization and tagging use spaCy's
+``en_core_web_sm`` when it loads (:func:`_try_spacy`), else the
+deterministic rule-based featurizer (``ruart_tpu_torch.text.featurizer``);
+the ``PHOC`` table comes from the native encoder (``text/phoc.py``); and
+deterministic hashed word vectors stand in when no GloVe/fastText files
+are configured.
 """
 
 from __future__ import annotations
@@ -37,30 +40,67 @@ from ruart_tpu_torch.core.config import Config
 from ruart_tpu_torch.core.constants import RESERVED_CHARS, RESERVED_WORDS
 from ruart_tpu_torch.eval import metrics
 from ruart_tpu_torch.text import featurizer
+from ruart_tpu_torch.text.phoc import build_phoc_embedding
 
 log = logging.getLogger(__name__)
 
 
-def annotate(text: str) -> Dict[str, List]:
+def _try_spacy():
+    try:
+        import spacy  # noqa
+
+        nlp = spacy.load("en_core_web_sm", disable=["parser"])
+        for token in nlp("probe"):  # reject broken installs / test stubs
+            token.tag_, token.ent_iob_, token.lemma_, token.idx
+        return nlp
+    except Exception:
+        return None
+
+
+def annotate(text: str, nlp=None) -> Dict[str, List]:
     """Tokenize + tag one string into the reference's 'process' schema
     (`CoQAPreprocess.py:566-599`): word / lemma / pos / pos_id / ent /
     ent_id / offsets / sentences."""
-    words, pos_ids, ent_ids = featurizer.tokenize_tag(text)
-    inv_pos = {v: k for k, v in featurizer.POS.items()}
-    inv_ent = {v: k for k, v in featurizer.ENT.items()}
-    lemmas = list(words)
-    pos = [inv_pos.get(p, "") for p in pos_ids]
-    ents = [inv_ent.get(e, "O") for e in ent_ids]
-    # token offsets over the pre_proc'd text
-    processed = featurizer.pre_proc(text.lower())
-    offsets = []
-    p = 0
-    for w in words:
-        found = processed.find(w, p)
-        if found < 0:
-            found = p
-        offsets.append((found, found + len(w)))
-        p = found + len(w)
+    if nlp is not None:
+        doc = nlp(featurizer.pre_proc(text.lower()))
+        words, lemmas, pos, pos_ids, ents, ent_ids, offsets = [], [], [], [], [], [], []
+        for token in doc:
+            words.append(featurizer.normalize_text(token.text))
+            lemmas.append(
+                token.lemma_ if token.lemma_ != "-PRON-" else token.text.lower()
+            )
+            pos.append(token.tag_)
+            pos_ids.append(featurizer.pos_id(token.tag_))
+            ent = "O" if token.ent_iob_ == "O" else f"{token.ent_iob_}-{token.ent_type_}"
+            ents.append(ent)
+            ent_ids.append(featurizer.ent_id(token.ent_iob_, token.ent_type_))
+            offsets.append((token.idx, token.idx + len(token.text)))
+        sentences = []
+        try:
+            idx = 0
+            for sent in doc.sents:
+                sentences.append((idx, idx + len(sent)))
+                idx += len(sent)
+        except Exception:
+            sentences = [(0, len(words))]
+    else:
+        words, pos_ids, ent_ids = featurizer.tokenize_tag(text)
+        inv_pos = {v: k for k, v in featurizer.POS.items()}
+        inv_ent = {v: k for k, v in featurizer.ENT.items()}
+        lemmas = list(words)
+        pos = [inv_pos.get(p, "") for p in pos_ids]
+        ents = [inv_ent.get(e, "O") for e in ent_ids]
+        # token offsets over the pre_proc'd text
+        processed = featurizer.pre_proc(text.lower())
+        offsets = []
+        p = 0
+        for w in words:
+            found = processed.find(w, p)
+            if found < 0:
+                found = p
+            offsets.append((found, found + len(w)))
+            p = found + len(w)
+        sentences = [(0, len(words))]
     return {
         "word": words,
         "lemma": lemmas,
@@ -69,7 +109,7 @@ def annotate(text: str) -> Dict[str, List]:
         "ent": ents,
         "ent_id": ent_ids,
         "offsets": offsets,
-        "sentences": [(0, len(words))],
+        "sentences": sentences,
     }
 
 
@@ -100,6 +140,32 @@ def token2id_sent(
     sent: Sequence[str], w2id: Dict[str, int], unk_id: int = 1
 ) -> List[int]:
     return [w2id.get(w, unk_id) for w in sent]
+
+
+def token2id_sent_substring_fallback(
+    sent: Sequence[str], w2id: Dict[str, int], unk_id: int = 1
+):
+    """OOV recovery for OCR garble: try len-1 and len-2 substrings before
+    falling back to UNK (`Utils/CoQAUtils.py:89-125`)."""
+    ids = []
+    for w in sent:
+        if w in w2id:
+            ids.append(w2id[w])
+            continue
+        found = None
+        wl = len(w)
+        for l in (wl - 1, wl - 2):
+            if l <= 0:
+                break
+            for i in range(wl - l + 1):
+                sub = w[i : i + l]
+                if sub in w2id:
+                    found = w2id[sub]
+                    break
+            if found is not None:
+                break
+        ids.append(found if found is not None else unk_id)
+    return ids
 
 
 def normalize_ocr_box(pos: Sequence[float], width: int, height: int) -> List[float]:
@@ -280,12 +346,13 @@ class Preprocessor:
     vocabulary (:meth:`_build_vocab`) and assign ids + synthesize n-gram
     candidates (:meth:`_assign_ids`)."""
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, nlp=None):
         self.cfg = cfg
         self.opt = cfg.opt
         self.feature_folder = self.opt.get("FEATURE_FOLDER", ".")
         self.n_gram = int(self.opt.get("n_gram", 2))
         self.build_test_vocab = "BuildTestVocabulary" in self.opt
+        self.nlp = nlp if nlp is not None else _try_spacy()
         labels = str(self.opt.get("Task", "test")).split(",")
         if "train" in labels:
             labels.remove("train")
@@ -433,11 +500,11 @@ class Preprocessor:
                     )
             data.append(out)
 
-        ocr_ann = [annotate(s) for s in ocr_strs]
-        od_ann = [annotate(s) for s in od_strs]
+        ocr_ann = [annotate(s, self.nlp) for s in ocr_strs]
+        od_ann = [annotate(s, self.nlp) for s in od_strs]
         for out in data:
-            out["annotated_question"] = annotate(out["question"])
-            out["answers"] = [annotate(a) for a in out["orign_answers"]]
+            out["annotated_question"] = annotate(out["question"], self.nlp)
+            out["answers"] = [annotate(a, self.nlp) for a in out["orign_answers"]]
             for name in ocr_names:
                 for item in out[name]:
                     # per-item dict copy, token lists shared read-only:
@@ -503,10 +570,6 @@ class Preprocessor:
         return RESERVED_CHARS + chars
 
     def _build_and_save_meta(self, data: List[dict]):
-        if "PHOC" in self.opt:
-            raise NotImplementedError(
-                "conf key PHOC: PHOC embeddings are not ported"
-            )
         self.train_vocab = self._build_vocab(data)
         self.train_char_vocab = self._build_char_vocab(self.train_vocab)
         meta: Dict[str, Any] = {
@@ -528,6 +591,8 @@ class Preprocessor:
             meta["glove_embedding"] = build_glove_embedding(
                 glove_file, self.train_vocab, int(self.opt.get("glove_dim", 300))
             ).tolist()
+        if "PHOC" in self.opt:
+            meta["phoc_embedding"] = build_phoc_embedding(self.train_vocab).tolist()
         path = os.path.join(self.feature_folder, "train_meta.msgpack")
         with open(path, "wb") as f:
             msgpack.pack(meta, f)

@@ -20,7 +20,7 @@ scored against thousands of candidates at once.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -133,6 +133,49 @@ def acc_batch(gt_list: Sequence[str], candidates: Sequence[str]) -> np.ndarray:
         [sum(1 for g in gts if g == c.lower()) / 10.0 for c in candidates],
         dtype=np.float32,
     )
+
+
+def stvqa_label(
+    gt_list: Sequence[str], ocr_words: Sequence[str]
+) -> Optional[Tuple[int, float]]:
+    """Best (candidate index, ANLS) over ground truths (`eval_func.py:37-60`).
+
+    Returns None when every ground truth is empty (reference returns False).
+    """
+    label_score, label_idx = -1.0, -1
+    all_none = True
+    for gt in gt_list:
+        if len(gt) == 0:
+            continue
+        all_none = False
+        ls, li = -1.0, -1
+        for idx, ocr in enumerate(ocr_words):
+            s = anls_score(gt, ocr)
+            if s > ls:
+                ls, li = s, idx
+        if ls > label_score:
+            label_score, label_idx = ls, li
+    if all_none:
+        return None
+    return label_idx, label_score
+
+
+def textvqa_label(
+    gt_list: Sequence[str], ocr_words: Sequence[str]
+) -> Tuple[int, float]:
+    """Best (candidate index, match-count/10) (`eval_func.py:72-88`)."""
+    gts = [g.lower() for g in gt_list]
+    label_score, label_idx = -1.0, -1
+    for idx, ocr in enumerate(ocr_words):
+        s = sum(1 for g in gts if g == ocr) / 10.0
+        if s > label_score:
+            label_score, label_idx = s, idx
+    return label_idx, label_score
+
+
+def final_anls(anls: float) -> float:
+    """Apply the official >=0.5 zeroing rule (`SDNetTrainer.py:448`)."""
+    return anls if anls >= 0.5 else 0.0
 
 
 def final_acc(acc: float, n_answers: int) -> float:

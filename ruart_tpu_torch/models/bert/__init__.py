@@ -1,0 +1,2 @@
+from ruart_tpu_torch.models.bert.config import BertConfig
+from ruart_tpu_torch.models.bert.model import BertModel, BertWordEncoder

@@ -1,0 +1,2 @@
+from ruart_tpu_torch.models.fusion.model import RUArtModel, install_embeddings
+from ruart_tpu_torch.models.fusion.spec import ModelSpec

@@ -24,7 +24,7 @@ module and parameter names follow the flax tree.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -161,6 +161,9 @@ class Attention(nn.Module):
             in_size, hidden_size, correlation_func, do_similarity,
             dropout_p, variational,
         )
+        # a list while introspect.record_intermediates records: every
+        # alpha of this module's calls, in call order
+        self.sown: Optional[List[torch.Tensor]] = None
 
     def forward(self, x1, x2, x2_mask, x3=None, x2_row_index=None):
         """With ``x2_row_index`` [R], x1 is [R, Lx, D] gathered rows while
@@ -173,6 +176,8 @@ class Attention(nn.Module):
             x2_mask = x2_mask.index_select(0, x2_row_index)
             x3 = x3.index_select(0, x2_row_index)
         alpha = masked_softmax(scores, x2_mask[:, None, :])
+        if self.sown is not None:
+            self.sown.append(alpha)
         return torch.bmm(alpha, x3)
 
 

@@ -30,10 +30,15 @@ the global batch's mask and keeps the rank's rows. Under tp the encoder is
 tensor-parallel (``models/bert/model.py``) and the glove/fast tables are
 split by rows, as ``parallel.mesh._PARAM_RULES`` lays them out.
 
-``PHOC`` (its embeddings are not ported) raises NotImplementedError naming
-the key (:func:`unported_conf_keys`). Three confs that the JAX forward
-cannot run either are refused at construction with a ValueError
-(:func:`_check_runnable`).
+Every conf branch of the JAX model is ported (:func:`unported_conf_keys`
+is empty); ``PHOC`` reads a frozen [vocab, 604] table
+(``install_embeddings``), split by rows over tp like the glove/fast ones.
+Three confs that the JAX forward cannot run either are refused at
+construction with a ValueError (:func:`_check_runnable`).
+
+``models/fusion/introspect.py`` collects what the JAX forward ``sow``s:
+each ``Attention``'s alpha and the candidate embedding before multi2one
+(``RUArtModel.sown_cand_emb``), only while it records.
 """
 
 from __future__ import annotations
@@ -70,8 +75,8 @@ GLOBAL_KEYS = (
 
 
 def unported_conf_keys(s: ModelSpec) -> List[str]:
-    """The conf branches of ``spec`` this port does not implement."""
-    return ["PHOC"] if s.use_phoc else []
+    """The conf branches of ``spec`` this port does not implement: none."""
+    return []
 
 
 def _check_runnable(s: ModelSpec) -> None:
@@ -110,15 +115,11 @@ class RUArtModel(nn.Module):
         """``mesh``: this rank's ``parallel.mesh.Mesh`` (see the module
         doc), or None on one rank."""
         super().__init__()
-        missing = unported_conf_keys(spec)
-        if missing:
-            raise NotImplementedError(
-                "conf branches not ported to ruart_tpu_torch: "
-                + ", ".join(missing)
-            )
         _check_runnable(spec)
         s = self.spec = spec
         self.mesh = mesh
+        # a list while introspect.record_intermediates records
+        self.sown_cand_emb: Optional[List[torch.Tensor]] = None
         tp = mesh.tp if mesh is not None else 1
 
         def table(name, width):
@@ -130,7 +131,7 @@ class RUArtModel(nn.Module):
         if s.use_fasttext:
             self.fast_embed = table("fast_embed", s.fast_dim)
         if s.use_phoc:
-            self.phoc_embed = nn.Embedding(s.vocab_size, s.phoc_dim)
+            self.phoc_embed = table("phoc_embed", s.phoc_dim)
         names = s.q_embedding + s.ocr_embedding
         if "pos" in names:
             self.pos_embedding = nn.Embedding(s.pos_vocab, s.pos_dim)
@@ -582,6 +583,8 @@ class RUArtModel(nn.Module):
                     word_emb.reshape(B, N * L, -1), q_word_emb, q_word_mask
                 ).reshape(B * N, L, -1)
             emb = torch.cat([emb, attended * tok_mask[..., None]], dim=-1)
+        if self.sown_cand_emb is not None:
+            self.sown_cand_emb.append(emb)
         last = gather_last_state(self.multi2one(emb, layout="flat"),
                                  flat["len"])
         if sel is not None:

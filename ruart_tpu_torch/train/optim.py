@@ -53,6 +53,13 @@ OPTIMIZERS = ("#", "ADAM", "ADAM2", "SGD")
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
+def bias_correction(decay: float, t: int) -> float:
+    """optax's ``1 - decay ** t``, computed in float32 as optax computes it:
+    at b2 0.999 and t 1 it is 0.0009999871, not 0.001 (float32(0.999) is
+    above 0.999), which moves Adam's first steps by 1.3e-5 relative."""
+    return float(np.float32(1) - np.float32(decay) ** t)
+
+
 def frozen_roots(spec: ModelSpec, tune_partial: bool) -> frozenset:
     """Top-level module names whose parameters never update."""
     roots = set()
@@ -170,12 +177,12 @@ class Optimizer:
         nus = [self.state[n]["nu"] for n in self.params]
         torch._foreach_mul_(mus, B1)
         torch._foreach_add_(mus, grads, alpha=1 - B1)
-        update = torch._foreach_div(mus, float(np.float32(1 - B1 ** t)))
+        update = torch._foreach_div(mus, bias_correction(B1, t))
         if self.name == "ADAM2":
             torch._foreach_mul_(nus, B2)
             torch._foreach_addcmul_(nus, grads, grads, value=1 - B2)
             denom = torch._foreach_sqrt(
-                torch._foreach_div(nus, float(np.float32(1 - B2 ** t))))
+                torch._foreach_div(nus, bias_correction(B2, t)))
             torch._foreach_add_(denom, EPS)
         else:
             absg = torch._foreach_abs(grads)

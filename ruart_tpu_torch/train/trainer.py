@@ -30,10 +30,9 @@ folder, preprocesses, and writes checkpoints (tp shards gathered to it)
 and ``submission.json``. A process that sees several cards without a
 world drives one of them; ``cli.main`` starts one rank per card.
 ``debug_nans`` (the CLI key) and ``DEBUG_NANS`` check every step's outputs
-for NaN/Inf (``train_step``). These JAX branches are not ported and raise
-NotImplementedError naming their conf key: the ``DEBUG`` data scan, and
-the fixed answers' PHOC vectors (``phoc`` in ``ocr_embedding`` with
-``fixed_answers``).
+for NaN/Inf (``train_step``). ``DEBUG`` makes :meth:`Trainer.train` a dry
+run of the data path: it scans every split without the model, writes the
+length histograms (``data/debug.py``) and returns.
 """
 
 from __future__ import annotations
@@ -54,6 +53,7 @@ import torch.distributed as dist
 from ruart_tpu_torch.core.config import Config
 from ruart_tpu_torch.data.collate import Collator
 from ruart_tpu_torch.data.dataset import VQADataset
+from ruart_tpu_torch.data.debug import dump_debug_scan
 from ruart_tpu_torch.data.image_features import load_image_features
 from ruart_tpu_torch.data.pipeline import (
     batch_iterator,
@@ -82,6 +82,7 @@ from ruart_tpu_torch.parallel.distributed import (
 from ruart_tpu_torch.parallel.layers import tp_dim
 from ruart_tpu_torch.parallel.mesh import shard_params, shard_tensor
 from ruart_tpu_torch.serve import resolve_device
+from ruart_tpu_torch.text.phoc import build_phoc_batch
 from ruart_tpu_torch.text.wordpiece import WordPieceTokenizer, build_demo_vocab
 from ruart_tpu_torch.train import checkpoint as ckpt
 from ruart_tpu_torch.train.loss import make_loss_fn
@@ -184,10 +185,6 @@ class Trainer:
         self.fixed_answers = None
         if "fixed_answers" not in self.opt:
             return
-        if "phoc" in self.opt.get("ocr_embedding", ""):
-            raise NotImplementedError(
-                "conf key PHOC: the fixed answers' PHOC vectors are not ported"
-            )
         folder = self.opt["fixed_answers_folder"]
         with open(os.path.join(folder, "fixed_answers_4000.txt")) as f:
             fixed = [line.strip().lower() for line in f if line.strip()]
@@ -198,12 +195,16 @@ class Trainer:
         if os.path.exists(label_path):
             with open(label_path, "rb") as f:
                 labels = msgpack.unpack(f, raw=False, strict_map_key=False)
+        # built for parity with the JAX trainer; no model reads it
+        phoc = None
+        if "phoc" in self.opt.get("ocr_embedding", ""):
+            phoc = build_phoc_batch(fixed)
         self.fixed_answers = fixed
         self.fixed_answers_entry = {
             "fixed_answers": fixed,
             "fixed_answers_len": len(fixed),
             "fixed_answers_label": labels,
-            "fixed_answers_phoc": None,
+            "fixed_answers_phoc": phoc,
         }
         self.opt["fixed_answers_len"] = len(fixed)
 
@@ -522,9 +523,20 @@ class Trainer:
         if model_path is not None:
             self.load_model(model_path)
         if "DEBUG" in self.opt:
-            raise NotImplementedError(
-                "conf key DEBUG: the data dry-run scan is not ported"
-            )
+            # data-path dry run: iterate every split through the pipeline
+            # without touching the model and dump length histograms
+            # (`SDNetTrainer.py:67-79`; a return instead of assert False)
+            for label in ("train", "val", "test"):
+                try:
+                    raw = self._load_split(label)
+                except FileNotFoundError:
+                    continue
+                ds = self._dataset(raw, "test" if label == "test" else "train")
+                if self._rank0:
+                    paths = dump_debug_scan(ds, label, self.save_folder or ".")
+                    log.info("DEBUG scan %s -> %s", label, paths)
+            log.info("DEBUG data dry run complete")
+            return
 
         train_data = self._dataset(self._load_split("train"), "train")
         val_data = self._dataset(self._load_split("val"), "dev")

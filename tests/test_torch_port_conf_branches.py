@@ -133,15 +133,14 @@ def test_branch_matches_jax(branch):
 
 
 def test_no_conf_branch_is_left_unported():
-    """Every branch above (and the shipped conf) builds in the port;
-    only PHOC stays refused by name."""
+    """Every branch above, the shipped conf and PHOC build in the port;
+    none is refused (PHOC's forward: tests/test_torch_port_phoc.py)."""
     for changes in [{}] + list(BRANCHES.values()):
         spec = _specs(changes)[2]
         assert unported_conf_keys(spec) == []
     spec = _specs({"PHOC": True})[2]
-    assert unported_conf_keys(spec) == ["PHOC"]
-    with pytest.raises(NotImplementedError, match="PHOC"):
-        RUArtModel(spec)
+    assert unported_conf_keys(spec) == []
+    assert RUArtModel(spec).phoc_embed.weight.shape == (spec.vocab_size, 604)
 
 
 @pytest.mark.parametrize("conf", sorted(NOT_RUNNABLE))

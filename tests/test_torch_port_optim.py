@@ -153,3 +153,17 @@ def test_frozen_word_tables_without_tune_partial():
     out, port_opt, _ = _run_both("#", 1e-3, False, False, (30.0,))
     assert set(port_opt.params) == {"Bert.weight", "Bert.bias", "head.weight",
                                     "head.bias"}
+
+
+@pytest.mark.parametrize("opt_name", ["#", "ADAM2"])
+def test_bias_correction_rounds_as_optax(opt_name):
+    """optax computes Adam's ``1 - b ** t`` in float32: at b2 0.999 and
+    t 1 that is 0.0009999871, 1.3e-5 from 0.001. At lr 1, where an update
+    is O(1), the port's first steps must follow it to 1e-6 abs (the
+    float64 formula misses by ~6e-6 in ADAM2)."""
+    out, _, _ = _run_both(opt_name, 1.0, False, True, (3.0, 2.0))
+    for step, (want, got) in enumerate(out):
+        for name in want:
+            np.testing.assert_allclose(got[name].numpy(), want[name].numpy(),
+                                       rtol=0, atol=1e-6,
+                                       err_msg=f"step {step}: {name}")

@@ -1,7 +1,7 @@
 """The weight bridge (ruart_tpu_torch/convert.py) and the port's model
 construction: a flax RUArtModel random init maps onto the port's state
-dict key for key, shape for shape and value for value, and the one conf
-key the port does not implement (PHOC) raises naming itself."""
+dict key for key, shape for shape and value for value, and every conf
+branch builds (PHOC included)."""
 
 import dataclasses
 
@@ -92,13 +92,14 @@ def test_random_init_is_seeded():
     ("ES_using_way", "post_process"), ("position_mod", "cat"),
 ])
 def test_unported_conf_branches_raise(key, value):
-    """These branches are ported now and build; the one conf key left
-    unported, PHOC, still raises naming itself."""
+    """These branches are ported now and build, with PHOC as well: no conf
+    key is left unported."""
     spec = _port_spec(**{key: value})
     assert unported_conf_keys(spec) == []
     RUArtModel(spec)
-    with pytest.raises(NotImplementedError, match="PHOC"):
-        RUArtModel(_port_spec(PHOC=True, **{key: value}))
+    spec = _port_spec(PHOC=True, **{key: value})
+    assert unported_conf_keys(spec) == []
+    assert RUArtModel(spec).phoc_embed.weight.shape == (spec.vocab_size, 604)
 
 
 @pytest.mark.parametrize("key", ["BF16", "INT8_BERT"])
