@@ -56,7 +56,10 @@ non-zero when there is none, or when any phase fails:
    words of vocabulary: 20 steps, eval at the start and the end), then
    ``cli.main_test`` from ``ANLS_best_model.ckpt``. Every loss must be
    finite, the checkpoints must exist, ``submission.json`` must hold one
-   entry per test item, and the kernel must launch in every step. Prints
+   entry per test item, and the kernel must launch in every step; the eval
+   step's CUDA graph for the first val batch, captured at the evaluation
+   before the first step, must replay the trained weights (scores within
+   1e-6 of the eager step's, no new capture). Prints
    the median step time (10 steps on one batch, each ended by a
    synchronize), steps/s of the CLI's loop, eval q/s of the prediction
    (the CLI's first pass, and the median of three warm passes of the same
@@ -74,7 +77,9 @@ non-zero when there is none, or when any phase fails:
 8. The serving stack at the width of phase 2, on the same 40 requests:
    (a) the pipelined ``predict`` against the serial path (answers equal,
    scores within 1e-4 of it and of phase 2; q/s of three calls each, in
-   turns); (b) ``warmup_calibrated`` and ``warmup(max_programs=32)``
+   turns); (b) on eager engines (``graphs=False``: a forward hook
+   records each batch's signature), ``warmup_calibrated`` and
+   ``warmup(max_programs=32)``
    (counts and seconds; every signature of the batches served afterwards
    was warmed) and the first pass of a fresh engine with and without
    warmup; (c) ``BatchingServer(max_wait_ms=10)``: two bursts of the 40
@@ -154,6 +159,27 @@ non-zero when there is none, or when any phase fails:
    ``profiler_trace``: its trace names K1's kernel. Every path runs with
    the counts set to 0 and must launch K1 12 times per batch, chunk or
    step.
+12. The eval step as one CUDA graph per batch signature (the engine's and
+   the trainer's default on a card; phases 2-11 serve through it too,
+   except phase 8 b, whose forward hooks need the eager engine, and a
+   path checked for exactly 12 K1 launches per batch runs once to capture
+   before its driven pass). (a) fp32, ``BF16`` and ``INT8_BERT``: a graph
+   engine against an eager one (``graphs=False``) on the 40 requests,
+   answers and idx equal, scores within 1e-6 (each batch's forward
+   byte-equal or within 1e-6), K1 exactly 12 per batch on both (the
+   replay-aware count). (b) ``warmup_calibrated`` on a fresh graph
+   engine: one graph per signature, the live pass captures nothing; the
+   capture seconds per signature and the graph pool's bytes. (c)
+   ``BatchingServer`` on a fresh graph engine: the burst's signatures met
+   cold inside ``dispatch`` while the gather thread prepares, answers as
+   ``predict``'s, a lone request as the eager engine's, one graph per
+   signature. (d) ``cli.main_test`` from phase 6's checkpoint on graphs and
+   eager: equal submissions. (e) fp32 and ``BF16``, graphs against eager
+   in turns (medians of 3): serve q/s, host ms per batch, device-busy
+   share, device kernels and host launch calls per batch (profiler on).
+   (f) ``INT8_BERT`` at tp 2 on two gloo ranks on the one card (the int8
+   layers whole on each rank, K1 over all 12 heads; a mesh keeps the step
+   eager) against the single-process int8 eval step: scores within 1e-4.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.
@@ -435,9 +461,10 @@ def time_kernel(att, shape, dtype_name="float32"):
                  nbytes, 4 * B * H * L * L * dh, rate)
 
 
-def build_engine(attention_impl, params=None, device=None, **opts):
+def build_engine(attention_impl, params=None, device=None, graphs=True,
+                 **opts):
     """The flagship serving engine on the card, or on ``device``
-    (``opts``: more conf keys)."""
+    (``opts``: more conf keys); ``graphs=False``: the eager engine."""
     import torch
 
     from ruart_tpu_torch.core.presets import stvqa_config
@@ -466,7 +493,8 @@ def build_engine(attention_impl, params=None, device=None, **opts):
         params = RUArtModel(spec).init_weights(
             torch.Generator().manual_seed(0)
         ).state_dict()
-    return InferenceEngine(cfg, spec, params, vocab, tok, device=device), params
+    return InferenceEngine(cfg, spec, params, vocab, tok, device=device,
+                           graphs=graphs), params
 
 
 def requests():
@@ -485,9 +513,10 @@ def requests():
 
 def where_the_time_goes(engine, reqs):
     """Split one serving pass into host work (featurize + collate) and
-    device work (H2D + forward + score fetch), then profile the device
-    part: device-busy share of its wall time and the kernels that take the
-    most device time."""
+    device work (H2D + forward + score fetch, through the engine's eval
+    step: graph replays on a graph engine), then profile the device part:
+    device-busy share of its wall time and the kernels that take the most
+    device time."""
     import torch
 
     host = []
@@ -498,8 +527,7 @@ def where_the_time_goes(engine, reqs):
 
     def device_pass():
         for q, ocr, od, _gt, _extra in batches:
-            with torch.inference_mode():
-                engine.model(*(engine.to_device(b) for b in (q, ocr, od))).cpu()
+            engine._forward([engine.to_device(b) for b in (q, ocr, od)]).cpu()
 
     device = []
     for _ in range(3):
@@ -511,7 +539,7 @@ def where_the_time_goes(engine, reqs):
     log(f"time (median of 3): host featurize+collate "
         f"{sorted(host)[1] * 1e3:.1f} ms, device h2d+forward+fetch "
         f"{sorted(device)[1] * 1e3:.1f} ms for {len(batches)} batches of "
-        f"{engine.batch_size}")
+        f"{engine.batch_size} ({engine.graph_count} CUDA graphs)")
     profile_device(device_pass, "serving pass")
 
 
@@ -561,7 +589,7 @@ def block_signature(blocks):
                        for k, v in sorted(b.items())) for b in blocks)
 
 
-def compare_answers(label, got, want, tol=SCORE_TOL):
+def compare_answers(label, got, want, tol=SCORE_TOL, phase="phase 8"):
     """Equal answers and idx, scores within ``tol``; returns the max score
     difference."""
     diff = max(abs(a["score"] - b["score"]) for a, b in zip(got, want))
@@ -572,7 +600,7 @@ def compare_answers(label, got, want, tol=SCORE_TOL):
     log(f"  {label}: {len(got)} answers, max |score diff| {diff:.3e} "
         f"(tol {tol:g}){'' if ok else '  FAIL'}")
     if not ok:
-        raise AssertionError(f"phase 8: {label} disagrees")
+        raise AssertionError(f"{phase}: {label} disagrees")
     return diff
 
 
@@ -615,12 +643,13 @@ def serve_stack(params, reqs, phase2, drive):
     compare_answers("(a) pipelined vs phase 2", piped, phase2)
     compare_answers("(a) pipelined vs serial", piped, out["serial"])
 
-    # (b) warmup: first pass of a fresh engine without, then with it
-    fresh, _ = build_engine("auto", params)
+    # (b) warmup: first pass of a fresh engine without, then with it; eager
+    # engines, whose forward hook sees every batch (phase 12 b: graphs)
+    fresh, _ = build_engine("auto", params, graphs=False)
     _, cold_qps = drive("first pass, no warmup",
                         lambda: timed_qps(lambda: fresh.predict(reqs)), n_batches)
     del fresh
-    warm, _ = build_engine("auto", params)
+    warm, _ = build_engine("auto", params, graphs=False)
     sigs = []
     hook = warm.model.register_forward_pre_hook(
         lambda _m, args: sigs.append(block_signature(args)))
@@ -1020,6 +1049,32 @@ def train_batch_on_device(trainer):
     return device_put_batch(host, trainer.device)[:4]
 
 
+def eval_graph_after_training(trainer):
+    """The trainer's eval step after its steps: the CUDA graph of the first
+    val batch's signature, captured at the evaluation before the first
+    step, replays the weights the optimizer updated in place: scores equal
+    to the eager step's (within 1e-6), and no new capture."""
+    import torch
+
+    from ruart_tpu_torch.train.train_step import make_eval_step
+
+    val = trainer._dataset(trainer._load_split("val"), "dev")
+    batch = trainer.collator([val[i] for i in range(trainer.cfg.batch_size)])
+    q, ocr, od, gt, _ = trainer._device_put(trainer._host_put(batch))
+    before = len(trainer.eval_step)
+    got = trainer.eval_step(q, ocr, od, gt)[0].clone()
+    want = make_eval_step(trainer.model, trainer.loss_fn,
+                          graphs=False)(q, ocr, od, gt)[0]
+    diff = (got - want).abs().max().item()
+    log(f"phase 6: the eval step's graph captured before the steps ({before} "
+        f"graphs, {len(trainer.eval_step) - before} new) against the eager "
+        f"step on the trained weights: max |score diff| {diff:.3e}, "
+        f"byte-equal {torch.equal(got, want)} (tol {GRAPH_TOL:g})")
+    if not (diff <= GRAPH_TOL and len(trainer.eval_step) == before):
+        raise AssertionError("phase 6: the eval graph did not replay the "
+                             "trained weights")
+
+
 def time_train_steps(trainer, batch, n: int = 10):
     """Median ms of ``n`` train steps on one batch, each ended by a
     synchronize (after 3 warm steps)."""
@@ -1128,6 +1183,8 @@ def bf16_serving(params, reqs, drive):
     engine, _ = build_engine("auto", params, BF16=True)
     plain, _ = build_engine("plain", params, BF16=True)
     fp32, _ = build_engine("auto", params)
+    for e in (engine, plain, fp32):
+        e.predict(reqs)  # captures the graphs: the driven passes replay
     got = drive("(a) BF16 predict, kernel", lambda: engine.predict(reqs),
                 n_batches, bf16=True, exact=True)
     want = drive("(a) BF16 predict, plain", lambda: plain.predict(reqs), 0,
@@ -1157,6 +1214,7 @@ def bf16_serving(params, reqs, drive):
     where_the_time_goes(engine, reqs)
     del plain, fp32
     int8 = engine.quantize()
+    int8.predict(reqs)  # captures the int8 model's graphs
     out = drive("(b) BF16 + INT8_BERT predict", lambda: int8.predict(reqs),
                 n_batches, bf16=True, exact=True)
     scores = batch_scores(int8, reqs, batches)
@@ -1262,10 +1320,12 @@ def branch_forwards(reqs, root, drive):
         diff = max_diff(got, batch_scores(plain, reqs, batches))
         rows = all(bool(s.isfinite().all())
                    and (s.sum(-1) - 1).abs().max().item() < 1e-4 for s in got)
-        answers_out = drive(f"(d) {label} predict",
-                            lambda: engine.predict(reqs), n_batches,
-                            exact=True) \
-            if not opts.get("img_feature") else None
+        answers_out = None
+        if not opts.get("img_feature"):
+            engine.predict(reqs)  # captures the graphs
+            answers_out = drive(f"(d) {label} predict",
+                                lambda: engine.predict(reqs), n_batches,
+                                exact=True)
         log(f"phase 9 (d): {label}: scores {tuple(got[0].shape)} per batch, "
             f"kernel vs plain max |diff| {diff:.3e} (tol {SCORE_TOL:g}), "
             f"finite softmax rows {rows}"
@@ -1758,6 +1818,7 @@ def phoc_paths(words, reqs, root, conf, drive, device="cuda"):
         engine.model.phoc_embed.weight.copy_(params["phoc_embed.weight"])
     plain, _ = build_engine("plain", params, device=device, **opts)
     table = engine.model.phoc_embed.weight
+    engine.predict(reqs)  # captures the graphs: the driven pass replays
     out = drive("(b) PHOC predict", lambda: engine.predict(reqs), n_batches,
                 exact=True)
     got = batch_scores(engine, reqs)
@@ -1964,6 +2025,401 @@ def attention_maps(engine, reqs, root, drive, device="cuda"):
         raise AssertionError("phase 11: the trace does not name K1's kernel")
 
 
+
+# -- phase 12: the eval step as one CUDA graph per batch signature ----------
+
+GRAPH_TOL = 1e-6  # graph replay against the eager step, fp32 scores
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx")
+
+
+def forward_scores(engine, batches):
+    """The engine's scores for each (q, ocr, od) host batch, copied out of
+    the graph's static outputs at once."""
+    return [engine._forward([engine.to_device(b) for b in batch]).clone()
+            for batch in batches]
+
+
+def graphs_against_eager(params, reqs, drive, device="cuda"):
+    """Phase 12 (a): fp32, BF16 and INT8_BERT, each on a graph engine and
+    an eager one: after a pass that captures, the 40 requests through
+    ``predict`` with the counts set to 0 (K1 exactly 12 per batch on both,
+    in bf16 under BF16), answers and idx equal and scores within 1e-6, the
+    forward of each batch byte-equal or within 1e-6. Returns the fp32
+    graph engine's answers."""
+    import torch
+
+    n_batches = -(-N_REQUESTS // 16)
+    answers = None
+    for label, opts, quant in (("fp32", {}, False),
+                               ("BF16", {"BF16": True}, False),
+                               ("INT8_BERT", {}, True)):
+        engines = {}
+        for graphs in (True, False):
+            engines[graphs] = build_engine("auto", params, device=device,
+                                           graphs=graphs, **opts)[0]
+            if quant:
+                engines[graphs].quantize()
+        g, e = engines[True], engines[False]
+        g.predict(reqs)  # captures this pass's signatures
+        captured = g.graph_count
+        log(f"phase 12 (a): {label}: graph pool after {captured} captures "
+            f"{pool_bytes(g.eval_step.pool)} bytes")
+        bf16 = "BF16" in opts
+        got = drive(f"(a) {label} predict, graphs", lambda: g.predict(reqs),
+                    n_batches, bf16=bf16, exact=True)
+        want = drive(f"(a) {label} predict, eager", lambda: e.predict(reqs),
+                     n_batches, bf16=bf16, exact=True)
+        compare_answers(f"(a) {label} graphs vs eager", got, want,
+                        tol=GRAPH_TOL, phase="phase 12")
+        batches = [b[:3] for _, _, b in e._collated_batches(reqs)]
+        sg, se = forward_scores(g, batches), forward_scores(e, batches)
+        equal = all(torch.equal(a, b) for a, b in zip(sg, se))
+        diff = max_diff(sg, se)
+        log(f"phase 12 (a): {label}: {captured} graphs for {n_batches} "
+            f"batches; forward scores graphs vs eager byte-equal {equal}, "
+            f"max |diff| {diff:.3e} (tol {GRAPH_TOL:g}); K1 12 per batch on "
+            f"both paths")
+        if not (diff <= GRAPH_TOL and captured >= 1
+                and e.graph_count == 0):
+            raise AssertionError(f"phase 12: {label} graph path disagrees "
+                                 "with the eager path")
+        if answers is None:
+            answers = got
+        del engines, g, e
+    return answers
+
+
+def pool_segments(pool):
+    """The device segments (cudaMalloc'd ranges) of one graph memory pool
+    (``torch.cuda.memory_snapshot`` entries)."""
+    import torch
+
+    return [s for s in torch.cuda.memory_snapshot()
+            if tuple(s.get("segment_pool_id", ())) == tuple(pool)]
+
+
+def pool_bytes(pool) -> int:
+    """Bytes of the device segments of one graph memory pool."""
+    return sum(s["total_size"] for s in pool_segments(pool))
+
+
+def warm_graphs(params, reqs, drive, device="cuda"):
+    """Phase 12 (b): ``warmup_calibrated`` on a fresh graph engine: as many
+    graphs as signatures, then the 40 requests capture nothing new.
+    Returns (capture seconds per signature, pool bytes)."""
+    import torch
+
+    n_batches = -(-N_REQUESTS // 16)
+    g, _ = build_engine("auto", params, device=device)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    n = drive("(b) warmup_calibrated, graphs",
+              lambda: g.warmup_calibrated(reqs), lambda n: n)
+    wall = time.perf_counter() - t0
+    warmed = g.graph_count
+    drive("(b) predict after warmup_calibrated", lambda: g.predict(reqs),
+          n_batches, exact=True)
+    seconds = sorted(x.seconds for x in g.eval_step.graphs.values())
+    segments = pool_segments(g.eval_step.pool)
+    pool = sum(x["total_size"] for x in segments)
+    active = sum(b["size"] for x in segments for b in x.get("blocks", ())
+                 if b.get("state") == "active_allocated")
+    sizes = sorted((x["total_size"] for x in segments), reverse=True)
+    added = torch.cuda.memory_reserved() - reserved
+    live = g.graph_count
+    del g
+    e, _ = build_engine("auto", params, device=device, graphs=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    e.warmup_calibrated(reqs)
+    eager_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base[0],
+            torch.cuda.max_memory_reserved() - base[1])
+    del e
+    log(f"phase 12 (b): eager warmup_calibrated {eager_s:.3f} s, peak "
+        f"{peak[0]} bytes allocated and {peak[1]} reserved above the "
+        f"weights")
+    log(f"phase 12 (b): graph pool {pool} bytes in {len(sizes)} segments "
+        f"(largest {sizes[:4]} bytes), of which {active} in allocated "
+        f"blocks: the rest is free, but a capture whose blocks fit no free "
+        f"segment allocates another")
+    log(f"phase 12 (b): warmup_calibrated {n} signatures in {wall:.3f} s, "
+        f"{warmed} graphs; capture seconds per signature median "
+        f"{statistics.median(seconds):.4f}, max {seconds[-1]:.4f}; the live "
+        f"pass captured {live - warmed}; graph pool {pool} bytes "
+        f"(device memory reserved by the warmup {added} bytes)")
+    if not (n == warmed >= 1 and live == warmed):
+        raise AssertionError("phase 12: warmup_calibrated left a signature "
+                             "to capture live")
+    return seconds, pool
+
+
+def graph_server(params, reqs, want, drive, device="cuda"):
+    """Phase 12 (c): ``BatchingServer`` on a fresh graph engine: every
+    signature is met cold inside ``dispatch`` on the device thread while
+    the gather thread prepares the next waves (the capture is
+    thread-local). The burst's answers equal ``predict``'s (scores within
+    1e-4, as phase 8 c), a lone request equals the eager engine's, and
+    the engine holds one graph per signature the waves had."""
+    from ruart_tpu_torch.serve import BatchingServer
+    from ruart_tpu_torch.utils.graphs import signature
+
+    n_batches = -(-N_REQUESTS // 16)
+    g, _ = build_engine("auto", params, device=device)
+    eager, _ = build_engine("auto", params, device=device, graphs=False)
+    with BatchingServer(g, max_wait_ms=10) as server:
+        served = drive("(c) BatchingServer burst, graphs met cold",
+                       lambda: [f.result(timeout=300) for f in
+                                [server.submit(r) for r in reqs]], n_batches)
+        lone = drive("(c) BatchingServer lone request, graphs",
+                     lambda: server.predict_one(reqs[0], timeout=300), 1)
+        stats = server.stats()
+    sigs = {signature([g.to_device(b) for b in batch[:3]] + [None])
+            for _, _, batch in list(g._collated_batches(reqs))
+            + list(g._collated_batches(reqs[:1]))}
+    compare_answers("(c) burst on graphs vs predict", served, want,
+                    phase="phase 12")
+    compare_answers("(c) lone request on graphs vs eager", [lone],
+                    eager.predict(reqs[:1]), tol=GRAPH_TOL, phase="phase 12")
+    log(f"phase 12 (c): {stats['batches']} waves, {g.graph_count} graphs "
+        f"captured inside dispatch for {len(sigs)} signatures; stats "
+        f"{json.dumps(stats)}")
+    if not (stats["batches"] == n_batches + 1 and g.graph_count == len(sigs)):
+        raise AssertionError("phase 12: the server's graphs do not match "
+                             "its signatures")
+
+
+def main_test_graphs(folder, conf_predict, drive):
+    """Phase 12 (d): ``cli.main_test`` with the trainer's eval step on
+    graphs and eager: equal submissions."""
+    import functools
+
+    import ruart_tpu_torch.train.trainer as trainer_mod
+    from ruart_tpu_torch.cli import main_test as cli_main_test
+    from ruart_tpu_torch.utils.graphs import SignatureGraphs
+
+    factory = trainer_mod.make_eval_step
+    subs, n_graphs = {}, {}
+    for graphs in (True, False):
+        if not graphs:
+            trainer_mod.make_eval_step = functools.partial(factory,
+                                                           graphs=False)
+        try:
+            predictor = drive(
+                f"(d) main_test, {'graphs' if graphs else 'eager'}",
+                lambda: cli_main_test.main(["--conf_file", conf_predict]),
+                -(-N_TEST // 16))
+        finally:
+            trainer_mod.make_eval_step = factory
+        step = predictor.eval_step
+        n_graphs[graphs] = len(step) if isinstance(step, SignatureGraphs) else 0
+        with open(os.path.join(folder, "submission.json")) as f:
+            subs[graphs] = json.load(f)
+        del predictor, step
+    log(f"phase 12 (d): main_test submissions on graphs ({n_graphs[True]} "
+        f"graphs) and eager ({n_graphs[False]}): {len(subs[True])} entries, "
+        f"equal {subs[True] == subs[False]}")
+    if not (subs[True] == subs[False] and len(subs[True]) == N_TEST
+            and n_graphs[True] >= 1 and n_graphs[False] == 0):
+        raise AssertionError("phase 12: main_test on graphs differs from "
+                             "eager")
+
+
+def profile_counts(fn):
+    """One run of ``fn`` under torch.profiler: (wall ms, device-busy ms,
+    device kernels, kernel-launch calls on the host, graph launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = kernels = launches = graphs = 0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")) == "DeviceType.CUDA":
+            us = getattr(e, "self_device_time_total", None)
+            busy += us if us is not None else getattr(e, "self_cuda_time_total", 0)
+            if not e.key.startswith(("Memcpy", "Memset")):
+                kernels += e.count
+        elif e.key in LAUNCH_APIS:
+            launches += e.count
+        elif e.key == "cudaGraphLaunch":
+            graphs += e.count
+    return wall, busy / 1e3, kernels, launches, graphs
+
+
+def host_ms_per_batch(engine, batches):
+    """Host ms to enqueue one batch's forward and its score fetch (the
+    device batches made first; each fetch awaited before the next)."""
+    import torch
+
+    blocks = [[engine.to_device(b) for b in batch] for batch in batches]
+    torch.cuda.synchronize()
+    out = []
+    for b in blocks:
+        t0 = time.perf_counter()
+        fetch = engine._launch(b)
+        out.append((time.perf_counter() - t0) * 1e3)
+        fetch()
+    return out
+
+
+def graph_numbers(params, reqs, device="cuda"):
+    """Phase 12 (e): graph path against eager for fp32 and BF16, in turns
+    in one call (medians of 3): serve q/s, host ms per batch, device-busy
+    share and launches per batch (profiler on). Returns the numbers."""
+    n_batches = -(-N_REQUESTS // 16)
+    numbers = {}
+    for label, opts in (("fp32", {}), ("BF16", {"BF16": True})):
+        g = build_engine("auto", params, device=device, **opts)[0]
+        e = build_engine("auto", params, device=device, graphs=False,
+                         **opts)[0]
+        g.warmup_calibrated(reqs)
+        e.predict(reqs)
+        log(f"phase 12 (e): {label}: eager against graphs")
+        qps, _ = in_turns("eager", lambda: e.predict(reqs), "graphs",
+                          lambda: g.predict(reqs))
+        batches = [b[:3] for _, _, b in e._collated_batches(reqs)]
+        host = {"eager": [], "graphs": []}
+        prof = {"eager": [], "graphs": []}
+        for i in range(3):
+            for arm in (("eager", "graphs") if i % 2 == 0
+                        else ("graphs", "eager")):
+                engine = e if arm == "eager" else g
+                host[arm] += host_ms_per_batch(engine, batches)
+                prof[arm].append(profile_counts(lambda: engine.predict(reqs)))
+        row = {}
+        for arm in ("eager", "graphs"):
+            walls, busys = ([p[i] for p in prof[arm]] for i in (0, 1))
+            share = statistics.median(100 * b / w for w, b in zip(walls, busys))
+            _, _, kernels, launches, graph_launches = prof[arm][0]
+            row[arm] = {"qps": statistics.median(qps[arm]),
+                        "host_ms": statistics.median(host[arm]),
+                        "busy_pct": share,
+                        "busy_ms": statistics.median(busys),
+                        "wall_ms": statistics.median(walls),
+                        "kernels_per_batch": kernels / n_batches,
+                        "launch_calls_per_batch": launches / n_batches,
+                        "graph_launches_per_batch": graph_launches / n_batches}
+            log(f"  {label} {arm}: serve {row[arm]['qps']:.2f} q/s; host "
+                f"{row[arm]['host_ms']:.3f} ms per batch "
+                f"{[round(x, 3) for x in host[arm]]}; device busy "
+                f"{row[arm]['busy_ms']:.3f} of {row[arm]['wall_ms']:.3f} ms "
+                f"({share:.1f}%, profiler on, median of 3); per batch "
+                f"{row[arm]['kernels_per_batch']:.1f} device kernels, "
+                f"{row[arm]['launch_calls_per_batch']:.1f} kernel-launch "
+                f"calls, {row[arm]['graph_launches_per_batch']:.1f} graph "
+                f"launches")
+        numbers[label] = row
+        del g, e
+    return numbers
+
+
+def phase12_rank(rank, world, address, work, device="cuda"):
+    """One of two gloo ranks on the one card: the trainer at tp 2 under
+    INT8_BERT (the int8 layers whole on each rank), its eval step on
+    phase 10's batches; K1's head counts recorded."""
+    import collections
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from ruart_tpu_torch.ops import attention as att
+    from ruart_tpu_torch.parallel.distributed import maybe_initialize_distributed
+    from ruart_tpu_torch.utils.graphs import SignatureGraphs
+
+    opt = dict(mesh_conf(work), INT8_BERT=True, coordinator_address=address,
+               num_processes=world, process_id=rank, local_device_ids="0")
+    maybe_initialize_distributed(opt, device, backend="gloo")
+    batches, _ = load_mesh_batches(work)
+    trainer = mesh_trainer(opt, device, 2)
+    trainer._apply_int8_eval()
+    heads = collections.Counter()
+    rows = att.attention_rows
+
+    def record_heads(q, k, v, bias, n_heads):
+        heads[n_heads] += 1
+        return rows(q, k, v, bias, n_heads)
+
+    att.attention_rows = record_heads
+    att.attention_rows_cuda.launches = 0
+    att.sharded_fused_attention.launches = 0
+    scores = [trainer.eval_step(*on_device(trainer, b))[0].cpu().numpy()
+              for b in batches]
+    att.attention_rows = rows
+    with open(os.path.join(work, f"int8_rank_{rank}.json"), "w") as f:
+        json.dump({"mesh": trainer.mesh.shape, "heads": dict(heads),
+                   "k1": att.attention_rows_cuda.launches,
+                   "sharded": att.sharded_fused_attention.launches,
+                   "graphs": isinstance(trainer.eval_step, SignatureGraphs)},
+                  f)
+    np.savez(os.path.join(work, f"int8_rank_{rank}.npz"), *scores)
+    dist.destroy_process_group()
+
+
+def int8_tp_ranks(work, device="cuda"):
+    """Phase 12 (f): ``INT8_BERT`` at tp 2 on two gloo ranks on the one
+    card (eager: a mesh keeps the eval step eager), phase 10's weights and
+    batches, against the single-process trainer's int8 eval step: scores
+    within 1e-4, K1 over all 12 heads on each rank."""
+    import numpy as np
+
+    from ruart_tpu_torch.parallel.launch import spawn
+
+    from ruart_tpu_torch.ops.quant import quantize_bert_params
+
+    batches, _ = load_mesh_batches(work)
+    single = mesh_trainer(dict(mesh_conf(work), INT8_BERT=True), device)
+    # the ranks quantize their host copy, the single process its weights on
+    # the card: the int8 weights and scales must come out bit-equal
+    state = {k: v for k, v in single.model.state_dict().items()
+             if k.startswith("Bert.")}
+    here, host = (quantize_bert_params(s) for s in (
+        state, {k: v.cpu() for k, v in state.items()}))
+    apart = sum(int((here[k].cpu() != host[k]).sum()) for k in here)
+    log(f"phase 12 (f): int8 weights and scales quantized on the card and "
+        f"on the host: {apart} of {sum(v.numel() for v in here.values())} "
+        f"values apart")
+    if apart:
+        raise AssertionError("phase 12: quantization differs by device")
+    single._apply_int8_eval()
+    want = [single.eval_step(*on_device(single, b))[0].cpu().numpy()
+            for b in batches]
+    del single
+    t0 = time.time()
+    spawn("chip_smoke:phase12_rank", 2, args=(work, device), timeout=300)
+    wall = time.time() - t0
+    failures = []
+    for r in range(2):
+        with open(os.path.join(work, f"int8_rank_{r}.json")) as f:
+            st = json.load(f)
+        with np.load(os.path.join(work, f"int8_rank_{r}.npz")) as z:
+            got = [z[f"arr_{i}"] for i in range(len(batches))]
+        diff = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+        log(f"phase 12 (f): INT8_BERT rank {r}: mesh {st['mesh']}, K1 "
+            f"{st['k1']} launches, heads per call {st['heads']}, sharded "
+            f"calls {st['sharded']}, graphs {st['graphs']}; max |score - "
+            f"single-process int8| {diff:.3e} (tol {SCORE_TOL:g})")
+        layers = 12 * len(batches)
+        if not (diff <= SCORE_TOL and st["mesh"] == {"dp": 1, "tp": 2}
+                and st["heads"] == {"12": layers}
+                and (st["k1"] == layers or device != "cuda")
+                and st["sharded"] == 0 and not st["graphs"]):
+            failures.append(f"rank {r}")
+    log(f"phase 12 (f): 2 gloo ranks in {wall:.1f} s wall")
+    if failures:
+        raise AssertionError("phase 12: INT8_BERT at tp 2 disagrees on "
+                             + ", ".join(failures))
+
+
 def main() -> int:
     try:
         import torch
@@ -2142,6 +2598,7 @@ def main() -> int:
                 raise AssertionError(f"the run folder lacks {name}")
         steps_per_s = trainer.updates / trainer.train_seconds
         peak_train = torch.cuda.max_memory_allocated()
+        eval_graph_after_training(trainer)
         batch = train_batch_on_device(trainer)
         step_ms, step_times = time_train_steps(trainer, batch)
         log(f"phase 6: train step median {step_ms:.2f} ms (synchronized, "
@@ -2253,19 +2710,34 @@ def main() -> int:
                 f"{launched}")
         log(f"phase 11 ok in {time.time() - t0:.1f} s (K1 at the chunk's "
             f"shape {k1_chunk[0]:.4f} ms)")
+
+        # -- phase 12: the eval step as one CUDA graph per signature --------
+        t0 = time.time()
+        n_phase11 = len(driven)
+        graph_answers = graphs_against_eager(params, reqs, drive)
+        warm_graphs(params, reqs, drive)
+        graph_server(params, reqs, graph_answers, drive)
+        main_test_graphs(folder, predict, drive)
+        graph_numbers(params, reqs)
+        int8_tp_ranks(root)
+        for label, launched, n in driven[n_phase11:]:
+            log(f"  phase 12 path {label}: {n} batches or steps, launches "
+                f"{launched}")
+        log(f"phase 12 ok in {time.time() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    stack_counts, branch_counts, phase11_counts = (
+    stack_counts, branch_counts, phase11_counts, phase12_counts = (
         {k: sum(c[k] for _, c, _ in paths) for k in serve_counts}
         for paths in (driven[:n_phase8], driven[n_phase8:n_phase10],
-                      driven[n_phase10:]))
+                      driven[n_phase10:n_phase11], driven[n_phase11:]))
     main_path = {k: serve_counts[k] + train_counts[k] + predict_counts[k]
                  + stack_counts[k] + branch_counts[k] + phase11_counts[k]
-                 for k in serve_counts}
+                 + phase12_counts[k] for k in serve_counts}
     log(f"launches on the main paths: serve {serve_counts}, train "
         f"{train_counts}, predict {predict_counts}, serving stack "
-        f"{stack_counts}, phase 9 {branch_counts}, phase 11 {phase11_counts}")
+        f"{stack_counts}, phase 9 {branch_counts}, phase 11 {phase11_counts}, "
+        f"phase 12 {phase12_counts}")
     log(f"total {time.time() - t_start:.1f} s")
     log(card)
     source = "ruart_tpu_torch/csrc/attention.cu"

@@ -96,8 +96,8 @@ def main(argv=None):
     )
     parser.add_argument(
         "--warmup", type=int, default=0, metavar="N",
-        help="Run up to N batch signatures once before serving "
-             "(0 = none: each signature pays its first use live).",
+        help="Capture up to N batch signatures before serving "
+             "(0 = none: each signature is captured at its first batch).",
     )
     args = parser.parse_args(argv)
 

@@ -37,7 +37,10 @@ The 2018 BERT architecture the reference vendors
   Dense output — then the bias added once), ``word_embeddings``
   vocab-parallel; the attention runs the kernel on the local heads
   (``ops.attention.sharded_fused_attention``). A rule tp does not divide
-  leaves its layer whole (``parallel.mesh.param_dim``).
+  leaves its layer whole (``parallel.mesh.param_dim``). Under ``quant='int8'``
+  the six projection/FFN layers stay whole on every rank, as the JAX mesh
+  rules leave ``kernel_q`` replicated, and the attention runs the kernel
+  over all heads; the word table is still split.
 
 Module and parameter names follow the flax tree (``embeddings``,
 ``layer_<i>``, ``attention_self.query`` ...) so ``convert.from_jax_params``
@@ -136,14 +139,13 @@ def _dense(c: BertConfig, in_features: int, out_features: int,
     'int8'`` (weights converted by ``ops.quant.quantize_bert_params``).
     Under a mesh, the layer ``name`` (e.g. ``layer_0.output_dense``) holds
     its tp shard: its output features (column-parallel) or its input
-    features (:class:`RowParallelLinear`)."""
-    dim = _sharded_dim(c, name + ".weight", (out_features, in_features))
+    features (:class:`RowParallelLinear`). An int8 layer stays whole on
+    every rank, bias included: the JAX package's mesh rules match
+    ``kernel`` and never ``kernel_q``/``scale``, so its int8 projections
+    are replicated (``parallel.mesh.param_shardings`` keeps them so)."""
     if c.quant == "int8":
-        if dim is not None:
-            raise NotImplementedError(
-                "INT8_BERT with tensor_parallel: the int8 encoder runs on "
-                "one rank's full weights")
         return QuantLinear(in_features, out_features)
+    dim = _sharded_dim(c, name + ".weight", (out_features, in_features))
     if dim == 0:
         return mark_sharded(Linear(in_features, out_features // c.mesh.tp),
                             weight=0, bias=0)

@@ -41,6 +41,11 @@ def record_intermediates(model) -> Iterator[Dict[str, List[torch.Tensor]]]:
         model.sown_cand_emb = None
 
 
+def is_recording(model) -> bool:
+    """True while :func:`record_intermediates` records ``model``."""
+    return model.sown_cand_emb is not None
+
+
 def forward_with_attention(model, q, ocr, od, **kwargs):
     """Returns (scores, {module_path: alpha tensor}). Alphas cover every
     Attention instance that ran (pre-align, deep attention levels, self

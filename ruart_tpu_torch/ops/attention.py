@@ -34,6 +34,11 @@ model-layout kernel on the rank's rows and local heads (the JAX
 runs the whole grid of shards in one process, and :func:`tp_kernel_ok` is
 the port's rule for when a tp degree keeps the kernel.
 
+:func:`launch_counts` and :func:`add_launches` read and add to every
+launch counter at once; a CUDA graph (``utils/graphs.py``) adds its
+capture's launches at each replay, so a replayed forward counts as an
+eager one.
+
 Head-major layout (K3): :func:`flash_attention_plain`,
 :func:`flash_attention_cuda` (launch count in
 ``flash_attention_cuda.launches``) and the dispatching
@@ -416,3 +421,26 @@ def sharded_fused_attention_global(
                 Mesh.local(dp, tp, d, t), plain=plain,
             )
     return out
+
+
+# Every launch counter of this module. A CUDA graph launches its kernels at
+# replay, where no wrapper runs: ``utils.graphs`` reads the counters around
+# a capture and adds the difference back at each replay.
+_COUNTERS = (
+    (attention_rows_cuda, "launches"),
+    (attention_rows_cuda, "bf16_launches"),
+    (flash_attention_cuda, "launches"),
+    (sharded_fused_attention, "launches"),
+)
+
+
+def launch_counts() -> tuple:
+    """The launch counters, in a fixed order (see :func:`add_launches`)."""
+    return tuple(getattr(fn, name) for fn, name in _COUNTERS)
+
+
+def add_launches(counts) -> None:
+    """Add ``counts`` (a :func:`launch_counts` tuple, or a difference of two)
+    to the launch counters."""
+    for (fn, name), n in zip(_COUNTERS, counts):
+        setattr(fn, name, getattr(fn, name) + n)

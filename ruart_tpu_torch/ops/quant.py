@@ -39,7 +39,10 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scale fp32 [out]) with q * scale ~= w and |q| <= 127."""
     w = w.float()
     amax = w.abs().amax(dim=1)
-    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    # a true division on every device: on CUDA ``amax / 127.0`` (a Python
+    # scalar) runs as a product with its reciprocal, which rounds apart
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                        torch.ones_like(amax))
     q = torch.clamp(torch.round(w / scale[:, None]), -127, 127).to(torch.int8)
     return q, scale
 

@@ -21,6 +21,8 @@ sharded on dim 0, and ``P('tp', None)`` one sharded on dim 1. A rule whose
 dimension tp does not divide falls back to replication (:func:`_fits`), and
 so does a Q/K/V or attention-output rule whose layer's heads tp does not
 divide: the kernel runs on whole heads (``ops.attention.tp_kernel_ok``).
+The int8 encoder's layers (``INT8_BERT``) are replicated whole
+(:func:`param_shardings`).
 """
 
 from __future__ import annotations
@@ -182,8 +184,13 @@ def param_dim(name: str, shape, tp: int, heads: Optional[int] = None
 
 def param_shardings(shapes: Dict[str, Tuple[int, ...]], mesh: Mesh,
                     heads: Optional[int] = None) -> Dict[str, Optional[int]]:
-    """{name: sharded dim or None} for a full state dict's shapes."""
-    return {k: param_dim(k, s, mesh.tp, heads) for k, s in shapes.items()}
+    """{name: sharded dim or None} for a full state dict's shapes. The
+    layers of an int8 encoder (a ``weight_q`` beside the bias) stay whole:
+    the JAX rules match ``kernel`` and never ``kernel_q``, and the port
+    keeps their bias whole with them (``models.bert.model._dense``)."""
+    int8 = {k[:-len("weight_q")] for k in shapes if k.endswith(".weight_q")}
+    return {k: None if k[:k.rfind(".") + 1] in int8 else
+            param_dim(k, s, mesh.tp, heads) for k, s in shapes.items()}
 
 
 def shard_tensor(x: torch.Tensor, dim: Optional[int], mesh: Mesh) -> torch.Tensor:

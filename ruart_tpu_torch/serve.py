@@ -9,8 +9,14 @@ batch N+1 with the device work of batch N; ``prepare``/``dispatch``/
 ``decode_pending`` split one wave into its host, device and decode stages
 for :class:`BatchingServer`, the micro-batching front end. ``num_worker``
 featurizes in a fork pool, ``quantize`` switches to the weight-only int8
-encoder (INT8_BERT), ``warmup``/``warmup_calibrated`` run the model once
-on every batch signature the JAX package would compile.
+encoder (INT8_BERT), ``warmup``/``warmup_calibrated`` run the eval step
+once on every batch signature the JAX package would compile.
+
+The engine serves through ``train.train_step.make_eval_step``, as the JAX
+engine serves through its jitted eval step: on a card each batch signature
+is captured once as a CUDA graph (by the warmups, or at its first live
+batch) and every batch after is one replay. ``graphs=False`` keeps the
+model eager (the port's ``jax.disable_jit``); on the CPU it is eager.
 
 Request schema (one sample):
     {"question": str,
@@ -60,7 +66,9 @@ from ruart_tpu_torch.models.fusion.model import RUArtModel
 from ruart_tpu_torch.models.fusion.spec import ModelSpec
 from ruart_tpu_torch.ops.quant import quantize_bert_params
 from ruart_tpu_torch.text.wordpiece import WordPieceTokenizer
+from ruart_tpu_torch.train.train_step import make_eval_step
 from ruart_tpu_torch.utils.gctune import tune_gc
+from ruart_tpu_torch.utils.graphs import SignatureGraphs
 
 log = logging.getLogger(__name__)
 
@@ -109,16 +117,20 @@ class InferenceEngine:
         tokenizer: WordPieceTokenizer,
         fixed_answers: Optional[Sequence[str]] = None,
         device=None,
+        graphs: bool = True,
     ):
         """``params``: the state dict of ``RUArtModel(spec)`` (tensors or
         numpy arrays), e.g. ``convert.from_jax_params(flax_params)``.
         ``fixed_answers``: the answer list of a ``fixed_answers`` model (the
-        trainer's ``fixed_answers``), for decoding."""
+        trainer's ``fixed_answers``), for decoding. ``graphs``: replay one
+        CUDA graph per batch signature on a card (the default), or run the
+        model eagerly."""
         self.cfg = cfg
         self.spec = spec
         self.tokenizer = tokenizer
         self.fixed_answers = fixed_answers
         self.device = resolve_device(device)
+        self.graphs = graphs
         self.collator = Collator(cfg)
         self.batch_size = cfg.batch_size
         # the serving host path is allocation-bound: raise GC thresholds
@@ -144,15 +156,24 @@ class InferenceEngine:
         # once the packed/unique tables are attached (collate.slim_block);
         # applied at the put AND to every warmup variant
         self._h2d_slim = bool(int(cfg.opt.get("h2d_slim", 1)))
-        self.model = self._load_model(spec, params)
+        self._load_model(spec, params)
 
-    def _load_model(self, spec: ModelSpec, params: Mapping[str, Any]) -> RUArtModel:
+    def _load_model(self, spec: ModelSpec, params: Mapping[str, Any]):
+        """Build the model and its eval step (the graphs of an earlier
+        model go with it)."""
         with self.device:
             model = RUArtModel(spec)
         model.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()})
         if spec.use_bert:
             model.Bert.cache_compute_weights()
-        return model.eval()
+        self.model = model.eval()
+        self.eval_step = make_eval_step(self.model, graphs=self.graphs)
+
+    @property
+    def graph_count(self) -> int:
+        """The CUDA graphs captured so far (0 when the engine is eager)."""
+        return len(self.eval_step) if isinstance(
+            self.eval_step, SignatureGraphs) else 0
 
     def _slim(self, block):
         return slim_block(block) if self._h2d_slim else block
@@ -293,8 +314,12 @@ class InferenceEngine:
         return put_block(self._host(block), self.device)
 
     def _forward(self, blocks) -> torch.Tensor:
-        with torch.inference_mode():
-            return self.model(*blocks)
+        """The scores of one batch on the device: a replay of its
+        signature's graph (captured now if it is new), or the eager model.
+        A replay's scores are overwritten by the next replay of the same
+        signature: :meth:`_launch` enqueues their copy to the host at
+        once."""
+        return self.eval_step(*blocks, None)[0]
 
     def _launch(self, blocks):
         """Enqueue the forward and the copy of its scores to the host right
@@ -397,14 +422,15 @@ class InferenceEngine:
         self.spec = dataclasses.replace(
             self.spec, bert=dataclasses.replace(self.spec.bert, quant="int8")
         )
-        self.model = self._load_model(self.spec, params)
+        self._load_model(self.spec, params)
         return self
 
     def _warm_step(self, q, ocr, od):
-        """Run the model once on one batch signature. JAX compiles one XLA
-        program per signature here; the port has no compile, and one run
-        builds the attention kernel and pays cuDNN's and the allocator's
-        first use of each shape."""
+        """Run the eval step once on one batch signature. JAX compiles one
+        XLA program per signature here; on a card the port captures the
+        signature's CUDA graph (after one eager run that builds the
+        attention kernel and pays cuDNN's and the allocator's first use of
+        each shape), eagerly it runs the model once."""
         self._forward([self.to_device(b) for b in (q, ocr, od)])
 
     def _sync(self):

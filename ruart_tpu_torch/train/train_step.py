@@ -17,6 +17,11 @@ global batch; the rank backpropagates its loss divided by the mesh size
 (the tp ranks of a dp slice compute the same loss), the optimizer sums the
 gradients over their copies, and the loss returned is the global batch's
 (the mean over dp). The eval step gathers the [B, C] scores over dp.
+
+On a card the eval step is the counterpart of the JAX package's
+``jax.jit(eval_step)``: one CUDA graph per batch signature
+(``utils.graphs.SignatureGraphs``), behind serving, ``main_test`` and the
+trainer's evaluation. :func:`eager_reason` says when it stays eager.
 """
 
 from __future__ import annotations
@@ -27,8 +32,10 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.distributed as dist
 
+from ruart_tpu_torch.models.fusion.introspect import is_recording
 from ruart_tpu_torch.models.fusion.model import RUArtModel
 from ruart_tpu_torch.train.optim import Optimizer
+from ruart_tpu_torch.utils.graphs import SignatureGraphs
 
 
 @dataclass
@@ -127,12 +134,41 @@ def dp_gather(x: torch.Tensor, mesh) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def eager_reason(device: torch.device, mesh=None, debug_nans: bool = False,
+                 graphs: bool = True) -> Optional[str]:
+    """Why :func:`make_eval_step` keeps the step eager, or None when it
+    replays CUDA graphs. Each reason is a condition the caller sets:
+    ``graphs=False`` (the port's ``jax.disable_jit``), a model on the CPU,
+    a ``mesh`` (its collectives run on gloo, which a graph cannot capture;
+    NCCL capture needs a host with several cards to be tried), and
+    ``debug_nans`` (its check reads each step's scores on the host, which
+    a capture cannot do; the eager step checks every call and stops at the
+    first NaN)."""
+    if not graphs:
+        return "graphs=False"
+    if device.type != "cuda":
+        return f"device {device.type}"
+    if mesh is not None:
+        return "mesh"
+    if debug_nans:
+        return "debug_nans"
+    return None
+
+
 def make_eval_step(model: RUArtModel, loss_fn: Optional[Callable] = None,
-                   mesh=None, debug_nans: bool = False):
+                   mesh=None, debug_nans: bool = False, graphs: bool = True):
     """Returns ``step(q, ocr, od, targets) -> (scores, loss)`` in eval mode
-    without a graph; the loss is 0 without ``loss_fn`` or targets. On a
-    ``mesh`` the batch is this rank's slice: the scores of the global
-    batch are gathered over dp, the loss is its mean over dp."""
+    without an autograd graph; the loss is 0 without ``loss_fn`` or
+    targets. On a ``mesh`` the batch is this rank's slice: the scores of
+    the global batch are gathered over dp, the loss is its mean over dp.
+
+    On a card the step is a :class:`~ruart_tpu_torch.utils.graphs.
+    SignatureGraphs`: one CUDA graph per batch signature, captured at the
+    signature's first call and replayed after; its outputs are overwritten
+    by the next call of the same signature, so the caller copies them out
+    first (``data.pipeline.fetch_async``). It stays eager where
+    :func:`eager_reason` gives a reason, and for each call made while
+    ``models.fusion.introspect.record_intermediates`` records the model."""
 
     def eval_step(q, ocr, od, targets):
         model.eval()
@@ -146,4 +182,8 @@ def make_eval_step(model: RUArtModel, loss_fn: Optional[Callable] = None,
                 loss = torch.zeros((), device=scores.device)
         return dp_gather(scores, mesh), dp_mean(loss, mesh)
 
-    return eval_step
+    device = next(model.parameters()).device
+    if eager_reason(device, mesh, debug_nans, graphs) is not None:
+        return eval_step
+    return SignatureGraphs(eval_step, device,
+                           eager_when=lambda: is_recording(model))

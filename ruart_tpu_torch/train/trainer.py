@@ -348,19 +348,21 @@ class Trainer:
             self._full_model = model
 
     # -- checkpoint plumbing --------------------------------------------
-    def _host_model(self, skip: str = "") -> Optional[RUArtModel]:
-        """The model to write, on rank 0 (None elsewhere): under tp the
-        host copy filled with this rank's tp row's shards (gathered; every
-        rank takes part), else the model itself. Names starting with
-        ``skip`` are not gathered."""
+    def _host_model(self, skip: str = "", everywhere: bool = False
+                    ) -> Optional[RUArtModel]:
+        """The full model, on rank 0 (None elsewhere) or on every rank with
+        ``everywhere``: under tp the host copy filled with this rank's tp
+        row's shards (gathered; every rank takes part), else the model
+        itself. Names starting with ``skip`` are not gathered."""
+        keep = self._rank0 or everywhere
         if self._full_model is None:
-            return self.model if self._rank0 else None
+            return self.model if keep else None
         full = {}
         for name, p in self.model.named_parameters():
             if not (skip and name.startswith(skip)):
                 full[name] = fetch_local_first(p, self.mesh, tp_dim(p),
-                                               materialize=self._rank0)
-        if not self._rank0:
+                                               materialize=keep)
+        if not keep:
             return None
         self._full_model.load_state_dict(
             {k: torch.from_numpy(v) for k, v in full.items()}, strict=False)
@@ -622,13 +624,21 @@ class Trainer:
     def _apply_int8_eval(self):
         """Swap the eval step to a weight-only-int8 copy of the encoder
         (INT8_BERT). Runs after the checkpoint load, so the int8 weights
-        reflect the loaded fp32 ones; the stateful fp32 model is kept."""
+        reflect the loaded fp32 ones; the stateful fp32 model is kept.
+        Under tp every rank gathers the full weights, quantizes them and
+        keeps its shards: the int8 layers whole, the word tables split
+        (``parallel.mesh.param_shardings``)."""
         qspec = dataclasses.replace(
             self.spec, bert=dataclasses.replace(self.spec.bert, quant="int8")
         )
         with self.device:
             qmodel = RUArtModel(qspec, self.mesh)
-        qmodel.load_state_dict(quantize_bert_params(self.model.state_dict()))
+        params = quantize_bert_params(
+            self._host_model(everywhere=True).state_dict())
+        if self.mesh is not None:
+            params = shard_params(params, self.mesh,
+                                  qspec.bert.num_attention_heads)
+        qmodel.load_state_dict(params)
         self.eval_step = make_eval_step(qmodel, self.loss_fn, self.mesh,
                                         self._debug_nans)
         log.info("INT8_BERT: encoder Linear layers quantized for inference")

@@ -49,7 +49,8 @@ def test_scan_sees_the_package():
                  "ruart_tpu_torch/models/fusion/conv.py",
                  "ruart_tpu_torch/train/schedules.py",
                  "ruart_tpu_torch/eval/coqa.py",
-                 "ruart_tpu_torch/utils/timing.py"):
+                 "ruart_tpu_torch/utils/timing.py",
+                 "ruart_tpu_torch/utils/graphs.py"):
         assert name in names
     native = {p.relative_to(REPO).as_posix() for p in NATIVE}
     assert native == {"ruart_tpu_torch/csrc/attention.cu",

@@ -11,7 +11,11 @@ BERT of 4 heads of 64 (hidden 256, 2 layers), the port's seeded weights
 tune_partial 20.
 
 * Forward on (dp 2), (tp 2) and (dp 2, tp 2): the port's ranks against
-  ``RUArtModel.apply`` on the JAX mesh of the same shape, within 1e-5 abs.
+  ``RUArtModel.apply`` on the JAX mesh of the same shape, within 1e-5 abs;
+  also (tp 2) and (dp 2, tp 2) under INT8_BERT, against the JAX mesh
+  forward of ``quantize_bert_params``'s tree, within 1e-5 abs (the
+  tolerance of ``test_torch_port_quant.py``): the int8 projections whole
+  on every rank, as the JAX rules leave ``kernel_q`` replicated.
 * The same dp-2 forward with per-rank layer-norm moments (the dp
   all-reduce of the whole-tensor layer norm taken out) must land outside
   that tolerance.
@@ -30,8 +34,9 @@ tune_partial 20.
   scores than those lie from fp32.
 * The trainer through the conf keys: 2 ranks, tensor_parallel 2, 2 steps,
   evaluation and saves; only rank 0 writes, the full checkpoint loads into
-  a single-process trainer that gives the same scores within 1e-5, and a
-  batch dp does not divide stays single-device.
+  a single-process trainer that gives the same scores within 1e-5, also
+  through the INT8_BERT eval model, and a batch dp does not divide stays
+  single-device.
 """
 
 import dataclasses
@@ -51,6 +56,7 @@ from ruart_tpu.core.config import Config as JaxConfig
 from ruart_tpu.models.bert.config import BertConfig as JaxBertConfig
 from ruart_tpu.models.fusion.model import RUArtModel as JaxRUArtModel
 from ruart_tpu.models.fusion.spec import ModelSpec as JaxModelSpec
+from ruart_tpu.ops.quant import quantize_bert_params as jax_quantize_bert_params
 from ruart_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from ruart_tpu.parallel.mesh import shard_params as jax_shard_params
 from ruart_tpu.train.loss import make_loss_fn as jax_make_loss_fn
@@ -198,23 +204,33 @@ def _jax_mesh(dp, tp):
     return jax_make_mesh(jax.devices()[:dp * tp], tp=tp)
 
 
-def jax_forward(setup, dp, tp):
-    _, _, model = _jax_model(setup["opt"])
+def jax_forward(setup, dp, tp, int8=False):
+    opt, params = setup["opt"], setup["flax"]
+    if int8:
+        opt, params = dict(opt, INT8_BERT=True), jax_quantize_bert_params(params)
+    _, _, model = _jax_model(opt)
     mesh = _jax_mesh(dp, tp)
-    params = jax_shard_params(jax.tree.map(jnp.asarray, setup["flax"]), mesh)
+    params = jax_shard_params(jax.tree.map(jnp.asarray, params), mesh)
     q, ocr, od, _ = _jax_batch(setup["batch"], mesh)
     fn = jax.jit(lambda p, a, b, c: model.apply(p, a, b, c,
                                                 deterministic=True))
     return np.asarray(fn(params, q, ocr, od))
 
 
-@pytest.mark.parametrize("dp,tp", [(2, 1), (1, 2), (2, 2)],
-                         ids=["dp2", "tp2", "dp2tp2"])
-def test_forward_matches_jax_mesh(setup, port, dp, tp):
-    want = jax_forward(setup, dp, tp)
-    got = port[{(2, 1): "dp2", (1, 2): "tp2", (2, 2): "dp2tp2"}[(dp, tp)]]
+@pytest.mark.parametrize("dp,tp,int8", [(2, 1, False), (1, 2, False),
+                                        (2, 2, False), (1, 2, True),
+                                        (2, 2, True)],
+                         ids=["dp2", "tp2", "dp2tp2", "tp2_int8",
+                              "dp2tp2_int8"])
+def test_forward_matches_jax_mesh(setup, port, dp, tp, int8):
+    want = jax_forward(setup, dp, tp, int8)
+    label = {(2, 1): "dp2", (1, 2): "tp2", (2, 2): "dp2tp2"}[(dp, tp)]
+    got = port[label + ("_int8" if int8 else "")]
     assert got.shape == want.shape == (BATCH, want.shape[1])
     np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+    if int8:
+        # the int8 encoder ran: its scores lie off the fp32 ones
+        assert np.abs(got - port[label]).max() > 10 * TOL
     if (dp, tp) == (2, 1):
         # teeth: the layer norm's moments taken per rank move the scores
         # well outside the tolerance
@@ -401,3 +417,9 @@ def test_trainer_two_ranks_through_conf_keys(tmp_path):
     assert trainer.mesh is None and trainer.updates == 2
     np.testing.assert_allclose(first_val_scores(trainer), got, atol=TOL,
                                rtol=0)
+    # INT8_BERT under tp 2: the eval model of the trained weights
+    trainer._apply_int8_eval()
+    for r in (0, 1):
+        np.testing.assert_allclose(
+            np.load(os.path.join(root, f"scores_int8_{r}.npy")),
+            first_val_scores(trainer), atol=TOL, rtol=0)

@@ -23,6 +23,7 @@ from ruart_tpu_torch.models.bert.config import BertConfig
 from ruart_tpu_torch.models.fusion.model import GLOBAL_KEYS, RUArtModel
 from ruart_tpu_torch.models.fusion.rnn import StackedBRNN
 from ruart_tpu_torch.models.fusion.spec import ModelSpec
+from ruart_tpu_torch.ops.quant import quantize_bert_params
 from ruart_tpu_torch.parallel.distributed import maybe_initialize_distributed
 from ruart_tpu_torch.parallel.layers import tp_dim
 from ruart_tpu_torch.parallel.mesh import make_mesh, shard_batch, shard_params
@@ -111,7 +112,8 @@ def full_params(model, mesh):
 
 def forward_ranks(rank, world, address, workdir):
     """Four ranks: (dp 2) on ranks 0-1 and (tp 2) on ranks 2-3 at once,
-    then (dp 2, tp 2) on all four; then one dp-2 train step on ranks 0-1
+    then (dp 2, tp 2) on all four; the tp-2 and (dp 2, tp 2) forwards under
+    INT8_BERT; then one dp-2 train step on ranks 0-1
     (and the dp-2 forward with per-rank layer-norm moments, and a dp-2
     step with dropout) while ranks
     2-3 run the tp-2 forward in bf16, recording the row-parallel reduces'
@@ -133,6 +135,13 @@ def forward_ranks(rank, world, address, workdir):
     out["dp2" if dp2 else "tp2"] = rank_forward(model, batch, mesh)
     _, model = rank_model(opt, bert, state, both)
     out["dp2tp2"] = rank_forward(model, batch, both)
+    # INT8_BERT: the int8 layers whole on every rank, the word tables split
+    int8_opt, int8 = dict(opt, INT8_BERT=True), quantize_bert_params(state)
+    if tp2 is not None:
+        _, model = rank_model(int8_opt, bert, int8, tp2)
+        out["tp2_int8"] = rank_forward(model, batch, tp2)
+    _, model = rank_model(int8_opt, bert, int8, both)
+    out["dp2tp2_int8"] = rank_forward(model, batch, both)
 
     if dp2 is not None:
         spec, model = rank_model(opt, bert, state, dp2)
@@ -189,8 +198,8 @@ def forward_ranks(rank, world, address, workdir):
 
 def trainer_ranks(rank, world, address, workdir, opt):
     """Two ranks through the conf keys: ``Trainer.train`` (2 steps, eval,
-    best-model saves), a full ``save``, the scores of the first val batch;
-    then a trainer whose batch dp does not divide. Records which ranks
+    best-model saves), a full ``save``, the scores of the first val batch,
+    and again through the INT8_BERT eval model; then a trainer whose batch dp does not divide. Records which ranks
     wrote checkpoint files."""
     from ruart_tpu_torch.train import checkpoint as ckpt
     from ruart_tpu_torch.train.trainer import Trainer
@@ -211,6 +220,9 @@ def trainer_ranks(rank, world, address, workdir, opt):
     trainer.train(eval_every=10 ** 6, log_every=10 ** 6)
     trainer.save(os.path.join(workdir, "full.ckpt"))
     scores = first_val_scores(trainer)
+    trainer._apply_int8_eval()  # INT8_BERT's eval model under tp
+    np.save(os.path.join(workdir, f"scores_int8_{rank}.npy"),
+            first_val_scores(trainer))
 
     small = dict(opt, batch_size=3)
     small.pop("tensor_parallel", None)
