@@ -54,7 +54,10 @@ non-zero when there is none, or when any phase fails:
    dropout, Adamax, BCE_D1, clip 10) at batch 16, BERT-base, synthetic
    msgpack data in a fresh directory under ``_scratch/`` (320 training items with ~4,900
    words of vocabulary: 20 steps, eval at the start and the end), then
-   ``cli.main_test`` from ``ANLS_best_model.ckpt``. Every loss must be
+   ``cli.main_test`` from ``ANLS_best_model.ckpt``. The train step replays
+   one CUDA graph per batch signature (the trainer's default on a card;
+   captures, seconds per capture and the train graph pool's bytes are
+   printed). Every loss must be
    finite, the checkpoints must exist, ``submission.json`` must hold one
    entry per test item, and the kernel must launch in every step; the eval
    step's CUDA graph for the first val batch, captured at the evaluation
@@ -66,7 +69,8 @@ non-zero when there is none, or when any phase fails:
    evaluator),
    the peak device memory and profiled steps (device-busy share, top
    kernels, top host operations).
-7. One train step on the card with the kernel and again with
+7. One eager train step (``graphs=False``: its gradients are read) on
+   the card with the kernel and again with
    ``attention_impl='plain'``, dropout off, the same weights and batch:
    loss within 1e-5 relative, updated parameters within 0.05 * lr abs
    wherever the two arms pin the gradient down to 1% and above 1e-7.
@@ -105,8 +109,9 @@ non-zero when there is none, or when any phase fails:
    ``INT8_BERT``: one pass, finite scores. (c) ``BF16`` training through
    ``cli.main``: 10 steps of the shipped train conf at batch 16 in phase
    6's folder, every loss finite and K1 in bf16 in every step; then one
-   step with ``LOCK_BERT`` off, whose encoder gradients must be finite and
-   not all zero (the bf16 backward through the ``autograd.Function``).
+   eager step with ``LOCK_BERT`` off, whose encoder gradients must be
+   finite and not all zero (the bf16 backward through the
+   ``autograd.Function``).
    (d) One full-width forward each of ``img_feature replace_od`` (36 x 2048
    synthetic region features), ``fixed_answers`` (a 4,000-line synthetic
    answer file) and ``ES_using_way post_process``, kernel against plain
@@ -129,8 +134,9 @@ non-zero when there is none, or when any phase fails:
    at tp 2 the forward of phase 2's three batches (scores within 1e-4 of
    phase 3's kernel path) and one train step of the shipped train conf on
    the first batch with seeded targets (loss within 1e-5 relative and
-   parameters within 0.05 * lr of the single-process kernel path's step
-   where the two gradients agree to 1% and exceed 1e-7, as in phase 7),
+   parameters within 0.05 * lr of the single-process kernel path's eager
+   step where the two gradients agree to 1% and exceed 1e-7, as in phase
+   7),
    K1 launched on every rank on 12 heads at dp 2 and on 6 at tp 2;
    at tp 2 a full checkpoint that rank 0 alone writes, which gives a
    single-process trainer the ranks' scores within 1e-4. The wall time is
@@ -180,12 +186,33 @@ non-zero when there is none, or when any phase fails:
    (f) ``INT8_BERT`` at tp 2 on two gloo ranks on the one card (the int8
    layers whole on each rank, K1 over all 12 heads; a mesh keeps the step
    eager) against the single-process int8 eval step: scores within 1e-4.
+13. The train step as one CUDA graph per batch signature, from phase 6's
+   trained weights and the first 5 training batches, each taken twice
+   (10 steps, dropout on, the same generator seed in every arm); graph
+   arms built by ``make_train_step(..., graphs=True)``, eager arms by
+   ``graphs=False``. (a) Per configuration — the shipped conf in fp32,
+   ``BF16``, ``LOCK_BERT`` off — the eager-against-eager spread first
+   (eager is not byte-stable: the embedding and index backward add with
+   atomics), then graphs against eager: in fp32 and ``BF16`` byte-equal
+   (losses and every trainable parameter) under PyTorch's deterministic
+   kernels, where two eager arms are byte-equal; with ``LOCK_BERT`` off,
+   which does not capture under those kernels, within twice the largest
+   spread of three eager arms. Losses and max |param diff| printed. (b)
+   K1 12 launches per step on both paths by the replay-aware count (in
+   bf16 under ``BF16``); kernel-launch calls and graph launches per step
+   on the host (profiler). (c) fp32 eager against graphs in turns: 3
+   rounds of 10 synchronized steps, the median of each, and the
+   device-busy share of a profiled step. (d) Phase 6's captures, seconds
+   per capture and train graph pool bytes. (e) A registered generator's
+   draws replayed equal to eager's; a capture with an unregistered one
+   raises, naming the signature.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.
 """
 
 import collections
+import contextlib
 import ctypes
 import json
 import math
@@ -1028,6 +1055,7 @@ def run_training(att, conf: str):
                           k1.bf16_launches - before[1], loss))
             return state, loss
 
+        recorded.step = step  # its graphs: step.graphs
         return recorded
 
     trainer_mod.make_train_step = recording_factory
@@ -1038,15 +1066,20 @@ def run_training(att, conf: str):
     return trainer, steps
 
 
-def train_batch_on_device(trainer):
-    """One collated training batch of the trainer's data, on the card."""
+def train_batches_on_device(trainer, n: int = 1):
+    """The first ``n`` collated training batches of the trainer's data (in
+    item order), on the card."""
     from ruart_tpu_torch.data.pipeline import device_put_batch, host_batch
 
     data = trainer._dataset(trainer._load_split("train"), "train")
-    batch = trainer.collator([data[i] for i in range(trainer.cfg.batch_size)])
-    host = host_batch(batch, trainer.spec, trainer._h2d_slim,
-                      pin=trainer.device.type == "cuda")
-    return device_put_batch(host, trainer.device)[:4]
+    size = trainer.cfg.batch_size
+    out = []
+    for first in range(0, n * size, size):
+        batch = trainer.collator([data[i] for i in range(first, first + size)])
+        host = host_batch(batch, trainer.spec, trainer._h2d_slim,
+                          pin=trainer.device.type == "cuda")
+        out.append(device_put_batch(host, trainer.device)[:4])
+    return out
 
 
 def eval_graph_after_training(trainer):
@@ -1118,8 +1151,10 @@ def compare_plain_step(att, trainer, batch):
             model = RUArtModel(spec)
         model.load_state_dict(weights)
         tx = Optimizer("#", LR, 10.0, model, spec, True)
+        # eager: the arms' gradients are read from the step
         step = make_train_step(make_loss_fn("BCE_D1"),
-                               make_row_pinner(model, spec, int(opt["tune_partial"])))
+                               make_row_pinner(model, spec, int(opt["tune_partial"])),
+                               graphs=False)
         state = init_train_state(model, tx, 0)
         before = att.attention_rows_cuda.launches
         state, loss = step(state, *batch)
@@ -1258,7 +1293,7 @@ def bf16_training(att, root, conf, drive):
             and all(b == n == layers for n, b, _ in steps)):
         raise AssertionError("phase 9: BF16 training ran a step without K1 in "
                              "bf16, or a loss is not finite")
-    batch = train_batch_on_device(trainer)
+    [batch] = train_batches_on_device(trainer)
     opt = dict(trainer.opt)
     opt.pop("LOCK_BERT")
     spec = ModelSpec.from_config(Config(opt), trainer.spec.bert)
@@ -1267,7 +1302,8 @@ def bf16_training(att, root, conf, drive):
     model.load_state_dict(trainer.model.state_dict())
     tx = Optimizer("#", LR, 10.0, model, spec, True)
     step = make_train_step(make_loss_fn("BCE_D1"),
-                           make_row_pinner(model, spec, int(opt["tune_partial"])))
+                           make_row_pinner(model, spec, int(opt["tune_partial"])),
+                           graphs=False)  # its gradients are read below
     state = init_train_state(model, tx, 0)
     _, loss = drive("(c) BF16 train step, LOCK_BERT off",
                     lambda: step(state, *batch), 1, bf16=True, exact=True)
@@ -1439,6 +1475,23 @@ def load_mesh_batches(work):
         return batches, z["gt"]
 
 
+@contextlib.contextmanager
+def eager_trainer_steps():
+    """Trainers set up inside the block take an eager train step
+    (``graphs=False``), whose gradients can be read after the step: on the
+    graph path ``param.grad`` belongs to the captured graph."""
+    import functools
+
+    import ruart_tpu_torch.train.trainer as trainer_mod
+
+    factory = trainer_mod.make_train_step
+    trainer_mod.make_train_step = functools.partial(factory, graphs=False)
+    try:
+        yield
+    finally:
+        trainer_mod.make_train_step = factory
+
+
 def mesh_trainer(opt, device, tp=None):
     """A trainer with the engine's weights (``weights.ckpt``), set up
     without preprocessing."""
@@ -1597,7 +1650,8 @@ def mesh_ranks(att, work, engine, params, kernel_scores, device="cuda"):
 
     # the single-process kernel path's train step, from the same weights
     opt = mesh_conf(work)
-    single = mesh_trainer(opt, device)
+    with eager_trainer_steps():
+        single = mesh_trainer(opt, device)
     dev = on_device(single, batches[0], gt)
     single.state, loss = single.train_step(single.state, *dev)
     want_loss = float(loss)
@@ -1848,7 +1902,7 @@ def phoc_paths(words, reqs, root, conf, drive, device="cuda"):
     trainer.setup_model(embeddings)
     fixed = trainer.fixed_answers_entry["fixed_answers_phoc"]
     oracle = np.stack([phoc.build_phoc_py(a) for a in trainer.fixed_answers])
-    batch = train_batch_on_device(trainer)
+    [batch] = train_batches_on_device(trainer)
     q, ocr, od = batch[:3]
     # the dataset's labels are one column short of the fixed-answers head
     # in both packages (ROADMAP, Queue 3): seeded targets of the head's width
@@ -2420,6 +2474,243 @@ def int8_tp_ranks(work, device="cuda"):
                              + ", ".join(failures))
 
 
+
+# -- phase 13: the train step as one CUDA graph per batch signature ---------
+
+N_GRAPH_STEPS = 10
+N_GRAPH_BATCHES = 5   # the 10 steps take batches 0-4 twice: 5 replays or more
+TRAIN_SEED = 0        # the dropout generator's seed in every arm
+ARM_SPREAD = 2        # graph vs eager held to this many eager-vs-eager spreads
+
+
+def train_graph_cost(step):
+    """Captures, seconds per capture (the signature's first call: its eager
+    step and the capture) and graph pool bytes of a train step."""
+    graphs = step.graphs
+    seconds = sorted(g.seconds for g in graphs.graphs.values())
+    return {"captures": len(graphs), "seconds": seconds,
+            "pool_bytes": pool_bytes(graphs.pool)}
+
+
+def train_arm(setup, opt, graphs: bool, device="cuda"):
+    """One arm of phase 13 (a): a model of the conf ``opt`` from phase 6's
+    trained weights, its optimizer and the dropout generator seeded with
+    TRAIN_SEED, built through ``make_train_step(..., graphs=graphs)``.
+    Returns (step, state, the batches of its N_GRAPH_STEPS steps)."""
+    import torch
+
+    from ruart_tpu_torch.core.config import Config
+    from ruart_tpu_torch.models.fusion.model import RUArtModel
+    from ruart_tpu_torch.models.fusion.spec import ModelSpec
+    from ruart_tpu_torch.train.loss import make_loss_fn
+    from ruart_tpu_torch.train.optim import Optimizer, make_row_pinner
+    from ruart_tpu_torch.train.train_step import init_train_state, make_train_step
+
+    spec = ModelSpec.from_config(Config(opt), setup["bert"])
+    with torch.device(device):
+        model = RUArtModel(spec)
+    model.load_state_dict(setup["weights"])
+    tune = int(opt["tune_partial"]) if "TUNE_PARTIAL" in opt else None
+    tx = Optimizer(str(opt.get("optimizer", "#")), float(opt["lr"]),
+                   float(opt.get("grad_clipping", 10)), model, spec,
+                   tune is not None)
+    step = make_train_step(make_loss_fn(str(opt.get("loss", "BCE_D1"))),
+                           make_row_pinner(model, spec, tune), graphs=graphs)
+    state = init_train_state(model, tx, TRAIN_SEED)
+    batches = [setup["batches"][i % N_GRAPH_BATCHES]
+               for i in range(N_GRAPH_STEPS)]
+    return step, state, batches
+
+
+def run_arm(step, state, batches):
+    """The arm's steps; returns (losses, trainable parameters after)."""
+    losses = [step(state, *b)[1] for b in batches]
+    return ([float(x) for x in losses],
+            {n: p.detach().clone() for n, p in state.optimizer.params.items()})
+
+
+def arm_diff(a, b):
+    """(max relative loss difference over the steps, max and mean |param
+    difference|) between two arms' results."""
+    import torch
+
+    loss = max(abs(x - y) / abs(y) for x, y in zip(a[0], b[0]))
+    diffs = [(a[1][n] - b[1][n]).abs() for n in b[1]]
+    top = max(d.max().item() for d in diffs)
+    mean = (sum(d.sum().item() for d in diffs)
+            / sum(d.numel() for d in diffs))
+    return loss, top, mean
+
+
+@contextlib.contextmanager
+def deterministic_kernels():
+    """PyTorch's deterministic kernels (embedding and index backward sorted
+    instead of atomic, cuDNN's deterministic algorithms) inside the block."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+def train_graph_equality(setup, drive, device="cuda"):
+    """Phase 13 (a) and (b): per configuration, eager arms and a graph arm
+    over the same 10 batches with dropout on. Eager training is not
+    byte-stable on the card (the embedding and index backward add with
+    atomics): its spread is measured first. The shipped conf and BF16 are
+    byte-stable under PyTorch's deterministic kernels, which they capture:
+    there the graph arm must be byte-equal to the eager one. LOCK_BERT off
+    does not capture under them (the capture is invalidated: "operation not
+    permitted when stream is capturing"), so there the graph arm, on the
+    default kernels, stays within ARM_SPREAD times the largest spread of
+    three eager arms. K1 12 per step on both paths (replay-aware), in bf16
+    under BF16. Returns the fp32 arms for the timing."""
+    base = dict(setup["opt"])
+    confs = [("fp32", base, False, True),
+             ("BF16", dict(base, BF16=True), True, True),
+             ("LOCK_BERT off", {k: v for k, v in base.items()
+                                if k != "LOCK_BERT"}, False, False)]
+    failures, kept = [], {}
+    for label, opt, bf16, exact in confs:
+        def arm(graphs, driven=""):
+            """One arm's results; a ``driven`` arm counts its launches,
+            and the fp32 ones are kept for the timing."""
+            step, state, batches = train_arm(setup, opt, graphs, device)
+            if not driven:
+                return run_arm(step, state, batches)
+            if label == "fp32":
+                kept[driven] = (step, state)
+            return drive(f"13 (b) {label} {driven} steps",
+                         lambda: run_arm(step, state, batches), N_GRAPH_STEPS,
+                         bf16=bf16, exact=True)
+
+        eager = [arm(False, "eager"), arm(False)]
+        spread = arm_diff(eager[1], eager[0])
+        log(f"phase 13 (a): {label}: eager vs eager: max rel loss diff "
+            f"{spread[0]:.3e}, max |param diff| {spread[1]:.3e}, mean "
+            f"{spread[2]:.3e}")
+        if exact:
+            got = arm(True, "graph")
+            diff = arm_diff(got, eager[0])
+            with deterministic_kernels():
+                det = [arm(False), arm(False), arm(True)]
+            det_spread, det_diff = (arm_diff(det[i], det[0]) for i in (1, 2))
+            ok = det_spread == det_diff == (0.0, 0.0, 0.0)
+            tol = (f"byte-equal under deterministic kernels: eager vs eager "
+                   f"{det_spread}, graphs vs eager {det_diff}")
+        else:
+            eager.append(arm(False))
+            spread = tuple(max(x) for x in zip(
+                spread, arm_diff(eager[2], eager[0]),
+                arm_diff(eager[2], eager[1])))
+            got = arm(True, "graph")
+            diff = arm_diff(got, eager[0])
+            limit = tuple(ARM_SPREAD * x for x in spread)
+            ok = all(d <= t for d, t in zip(diff, limit))
+            tol = (f"{ARM_SPREAD} x the largest spread of 3 eager arms: "
+                   + ", ".join(f"{x:.3e}" for x in limit))
+        log(f"phase 13 (a): {label}: losses eager "
+            f"{[round(x, 6) for x in eager[0][0]]}, graphs "
+            f"{[round(x, 6) for x in got[0]]}")
+        log(f"phase 13 (a): {label}: graphs vs eager: max rel loss diff "
+            f"{diff[0]:.3e}, max |param diff| {diff[1]:.3e}, mean "
+            f"{diff[2]:.3e}; tol {tol}; {'ok' if ok else 'FAILED'}")
+        if not ok:
+            failures.append(label)
+    if failures:
+        raise AssertionError("phase 13: the graph steps disagree with the "
+                             "eager steps in " + ", ".join(failures))
+    return kept
+
+
+def train_graph_timing(arms, setup):
+    """Phase 13 (b) host calls and (c): the fp32 arms in turns, 3 rounds of
+    10 synchronized steps each (the median per round), and one profiled
+    step per arm and round (device-busy share, device kernels, kernel-launch
+    calls and graph launches on the host). Returns the numbers."""
+    import torch
+
+    runs = {"eager": arms["eager"], "graphs": arms["graph"]}
+    batches = [setup["batches"][i % N_GRAPH_BATCHES]
+               for i in range(N_GRAPH_STEPS)]
+    medians = {arm: [] for arm in runs}
+    prof = {arm: [] for arm in runs}
+    for i in range(3):
+        for arm in (("eager", "graphs") if i % 2 == 0 else ("graphs", "eager")):
+            step, state = runs[arm]
+            times = []
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(state, *b)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            medians[arm].append(statistics.median(times))
+            prof[arm].append(profile_counts(lambda: step(state, *batches[0])))
+    numbers = {}
+    for arm in runs:
+        walls, busys = ([p[i] for p in prof[arm]] for i in (0, 1))
+        _, _, kernels, launches, graph_launches = prof[arm][0]
+        numbers[arm] = {
+            "step_ms": statistics.median(medians[arm]),
+            "rounds_ms": medians[arm],
+            "busy_pct": statistics.median(100 * b / w
+                                          for w, b in zip(walls, busys)),
+            "busy_ms": statistics.median(busys),
+            "wall_ms": statistics.median(walls), "kernels": kernels,
+            "launch_calls": launches, "graph_launches": graph_launches}
+        n = numbers[arm]
+        log(f"phase 13 (c): {arm}: step median {n['step_ms']:.3f} ms (rounds "
+            f"{[round(x, 3) for x in medians[arm]]}, each the median of "
+            f"{len(batches)} synchronized steps); profiled step busy "
+            f"{n['busy_ms']:.3f} of {n['wall_ms']:.3f} ms ({n['busy_pct']:.1f}%, "
+            f"profiler on, median of 3); per step {kernels} device kernels, "
+            f"{launches} kernel-launch calls, {graph_launches} "
+            f"graph launches")
+    return numbers
+
+
+def generator_registration():
+    """Phase 13 (e): a graph that registers the dropout generator draws, at
+    each replay, what eager draws from the same generator state; a capture
+    that uses an unregistered generator raises, naming the signature."""
+    import torch
+
+    from ruart_tpu_torch.utils.graphs import SignatureGraphs
+
+    x = torch.zeros(4096, device="cuda")
+    got, want = [], []
+    for arm, out in (("graph", got), ("eager", want)):
+        g = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+
+        def draw(x, g=g):
+            return torch.empty_like(x).bernoulli_(0.7, generator=g)
+
+        fn = SignatureGraphs(draw, "cuda", generators=(g,)) if arm == "graph" else draw
+        out += [fn(x).clone() for _ in range(4)]
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    distinct = len({tuple(t[:64].tolist()) for t in want}) == len(want)
+    g = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    unregistered = SignatureGraphs(
+        lambda x: torch.empty_like(x).bernoulli_(0.7, generator=g), "cuda")
+    try:
+        unregistered(x)
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    log(f"phase 13 (e): 4 draws of a registered generator, graph (1 eager "
+        f"call, 3 replays) against eager: equal {same}, each draw new "
+        f"{distinct}; an unregistered generator: "
+        + (f"raised {raised[:160]!r}" if raised else "did NOT raise"))
+    if not (same and distinct and "capture failed for signature" in raised):
+        raise AssertionError("phase 13: the dropout generator's graph "
+                             "handling is wrong")
+
+
 def main() -> int:
     try:
         import torch
@@ -2598,8 +2889,13 @@ def main() -> int:
                 raise AssertionError(f"the run folder lacks {name}")
         steps_per_s = trainer.updates / trainer.train_seconds
         peak_train = torch.cuda.max_memory_allocated()
+        train_cost = train_graph_cost(trainer.train_step.step)
+        log(f"phase 6: the train step on CUDA graphs: {train_cost['captures']} "
+            f"captures in {len(steps)} steps, seconds per capture "
+            f"{[round(x, 4) for x in train_cost['seconds']]}, graph pool "
+            f"{train_cost['pool_bytes']} bytes")
         eval_graph_after_training(trainer)
-        batch = train_batch_on_device(trainer)
+        [batch] = train_batches_on_device(trainer)
         step_ms, step_times = time_train_steps(trainer, batch)
         log(f"phase 6: train step median {step_ms:.2f} ms (synchronized, "
             f"{[round(t, 2) for t in step_times]}); CLI loop {steps_per_s:.3f} "
@@ -2611,6 +2907,13 @@ def main() -> int:
             log(f"  eval {e['mode']} batch {e['batch']}: {e['n']} items in "
                 f"{e['seconds']:.3f} s ({e['n'] / e['seconds']:.2f} q/s), "
                 f"ANLS {e['ANLS']:.4f} ACC {e['ACC']:.4f}")
+
+        # what phase 13 trains from: the trained weights, 5 batches
+        graph_setup = {
+            "opt": dict(trainer.opt), "bert": trainer.spec.bert,
+            "weights": {k: v.detach().clone()
+                        for k, v in trainer.model.state_dict().items()},
+            "batches": train_batches_on_device(trainer, N_GRAPH_BATCHES)}
 
         # -- phase 7: one step with the kernel and with the plain version -----
         compare_plain_step(att, trainer, batch)
@@ -2724,20 +3027,38 @@ def main() -> int:
             log(f"  phase 12 path {label}: {n} batches or steps, launches "
                 f"{launched}")
         log(f"phase 12 ok in {time.time() - t0:.1f} s")
+
+        # -- phase 13: the train step as one CUDA graph per signature -------
+        t0 = time.time()
+        n_phase12 = len(driven)
+        arms = train_graph_equality(graph_setup, drive)
+        train_graph_timing(arms, graph_setup)
+        del arms, graph_setup
+        log(f"phase 13 (d): phase 6's 20 steps through cli.main: "
+            f"{train_cost['captures']} captures, seconds per capture "
+            f"{[round(x, 4) for x in train_cost['seconds']]} (median "
+            f"{statistics.median(train_cost['seconds']):.4f}), train graph "
+            f"pool {train_cost['pool_bytes']} bytes")
+        generator_registration()
+        for label, launched, n in driven[n_phase12:]:
+            log(f"  phase 13 path {label}: {n} steps, launches {launched}")
+        log(f"phase 13 ok in {time.time() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    stack_counts, branch_counts, phase11_counts, phase12_counts = (
+    (stack_counts, branch_counts, phase11_counts, phase12_counts,
+     phase13_counts) = (
         {k: sum(c[k] for _, c, _ in paths) for k in serve_counts}
         for paths in (driven[:n_phase8], driven[n_phase8:n_phase10],
-                      driven[n_phase10:n_phase11], driven[n_phase11:]))
+                      driven[n_phase10:n_phase11],
+                      driven[n_phase11:n_phase12], driven[n_phase12:]))
     main_path = {k: serve_counts[k] + train_counts[k] + predict_counts[k]
                  + stack_counts[k] + branch_counts[k] + phase11_counts[k]
-                 + phase12_counts[k] for k in serve_counts}
+                 + phase12_counts[k] + phase13_counts[k] for k in serve_counts}
     log(f"launches on the main paths: serve {serve_counts}, train "
         f"{train_counts}, predict {predict_counts}, serving stack "
         f"{stack_counts}, phase 9 {branch_counts}, phase 11 {phase11_counts}, "
-        f"phase 12 {phase12_counts}")
+        f"phase 12 {phase12_counts}, phase 13 {phase13_counts}")
     log(f"total {time.time() - t_start:.1f} s")
     log(card)
     source = "ruart_tpu_torch/csrc/attention.cu"

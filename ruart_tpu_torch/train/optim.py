@@ -72,9 +72,15 @@ def frozen_roots(spec: ModelSpec, tune_partial: bool) -> frozenset:
 
 class Optimizer:
     """The JAX package's optax chain for one model, updating its
-    parameters in place. :meth:`step` reads ``param.grad``; the step
-    count lives on the host, every other value on the parameters'
-    device, so a step needs no host synchronisation."""
+    parameters in place. A step is :meth:`advance` on the host (the step
+    count, and the bias corrections of that count written into two 0-d
+    device tensors) then :meth:`update` on the device (it reads
+    ``param.grad``, the moments and those tensors, and nothing of the
+    host): a train step's CUDA graph captures :meth:`update` and replays it
+    after each :meth:`advance`. :meth:`step` is the two in one. No step
+    needs a host synchronisation. Every tensor of the state keeps its
+    storage for the optimizer's life (:meth:`load_state_dict` copies into
+    it), so a captured update reads and writes the live state."""
 
     def __init__(
         self,
@@ -102,6 +108,10 @@ class Optimizer:
             if name.split(".")[0] not in frozen
         }
         self.count = 0
+        device = next(iter(self.params.values())).device if self.params else None
+        # 1 - b1^t and 1 - b2^t of the step in flight (advance writes them)
+        self.bias_corrections = tuple(torch.ones((), device=device)
+                                      for _ in range(2))
         self.state: Dict[str, Dict[str, torch.Tensor]] = {}
         if opt_name != "SGD":
             self.state = {
@@ -156,18 +166,34 @@ class Optimizer:
                             self.grad_clip / norm)
         return torch._foreach_mul(grads, scale)
 
-    @torch.no_grad()
     def step(self):
-        """One update of every trainable parameter. The arithmetic runs as
-        ``torch._foreach_*`` calls over all parameters at once (a few
-        kernel launches per operation instead of one per parameter); the
-        moments update in place."""
+        """One update of every trainable parameter: :meth:`advance` then
+        :meth:`update`."""
+        self.advance()
+        self.update()
+
+    @torch.no_grad()
+    def advance(self):
+        """The host's part of a step: count it and write its bias
+        corrections (float32, as optax rounds them) into the device
+        tensors that :meth:`update` divides by."""
+        self.count += 1
+        for value, decay in zip(self.bias_corrections, (B1, B2)):
+            value.fill_(bias_correction(decay, self.count))
+
+    @torch.no_grad()
+    def update(self):
+        """The device's part of a step, for the count :meth:`advance` set.
+        The arithmetic runs as ``torch._foreach_*`` calls over all
+        parameters at once (a few kernel launches per operation instead of
+        one per parameter); the moments update in place. It divides by
+        the bias corrections as tensors: a true division on every device,
+        where CUDA would multiply by the reciprocal of a Python scalar."""
         params = list(self.params.values())
         if not params:
             return
         grads = self._clipped_grads()
-        self.count += 1
-        t = self.count
+        bc1, bc2 = self.bias_corrections
         if self.name == "SGD":
             torch._foreach_add_(params, grads, alpha=-self.lr)
             return
@@ -177,12 +203,11 @@ class Optimizer:
         nus = [self.state[n]["nu"] for n in self.params]
         torch._foreach_mul_(mus, B1)
         torch._foreach_add_(mus, grads, alpha=1 - B1)
-        update = torch._foreach_div(mus, bias_correction(B1, t))
+        update = torch._foreach_div(mus, bc1)
         if self.name == "ADAM2":
             torch._foreach_mul_(nus, B2)
             torch._foreach_addcmul_(nus, grads, grads, value=1 - B2)
-            denom = torch._foreach_sqrt(
-                torch._foreach_div(nus, bias_correction(B2, t)))
+            denom = torch._foreach_sqrt(torch._foreach_div(nus, bc2))
             torch._foreach_add_(denom, EPS)
         else:
             absg = torch._foreach_abs(grads)
@@ -202,8 +227,10 @@ class Optimizer:
         return out
 
     def load_state_dict(self, arrays: Dict[str, np.ndarray]):
-        """Raises ValueError when ``arrays`` was written for another set of
-        parameters, shapes or optimizer."""
+        """Copies ``arrays`` into the moments in place (a captured update
+        goes on reading the same tensors). Raises ValueError when
+        ``arrays`` was written for another set of parameters, shapes or
+        optimizer."""
         want = set(self.state_dict())
         if set(arrays) != want:
             missing = sorted(want - set(arrays))[:3]
@@ -217,10 +244,8 @@ class Optimizer:
                     raise ValueError(f"optimizer state {slot}/{name}: shape "
                                      f"{shape} vs {tuple(st[slot].shape)}")
         for name, st in self.state.items():
-            for slot in st:
-                st[slot] = torch.as_tensor(
-                    np.asarray(arrays[f"{slot}/{name}"]), dtype=st[slot].dtype
-                ).to(st[slot].device)
+            for slot, value in st.items():
+                value.copy_(torch.as_tensor(np.asarray(arrays[f"{slot}/{name}"])))
         self.count = int(arrays["count"])
 
 

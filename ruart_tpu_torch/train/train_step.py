@@ -21,11 +21,18 @@ gradients over their copies, and the loss returned is the global batch's
 On a card the eval step is the counterpart of the JAX package's
 ``jax.jit(eval_step)``: one CUDA graph per batch signature
 (``utils.graphs.SignatureGraphs``), behind serving, ``main_test`` and the
-trainer's evaluation. :func:`eager_reason` says when it stays eager.
+trainer's evaluation. The train step's device part is the counterpart of
+``jax.jit(train_step, donate_argnums=(0,))`` in the same way, behind
+``Trainer.train``: the parameters, the moments and the dropout
+generator's state stay in place (the donated state), and what changes
+from step to step on the host (the step count, the bias corrections)
+reaches the graph as device tensors written before each replay.
+:func:`eager_reason` says when a step stays eager.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
@@ -84,20 +91,33 @@ def make_train_step(
     row_pinner: Callable[[], None],
     debug_nans: bool = False,
     mesh=None,
+    graphs: bool = True,
 ):
     """Returns ``step(state, q, ocr, od, targets) -> (state, loss)``;
     ``state`` is updated in place and returned, ``loss`` is a 0-d device
-    tensor. On a ``mesh`` the batch is this rank's slice (see the module
-    doc)."""
+    tensor of its own. On a ``mesh`` the batch is this rank's slice (see
+    the module doc).
+
+    A step is the host's part (``Optimizer.advance``: the step count and
+    its bias corrections; ``state.step``) around the device's part: the
+    forward in training mode, the loss, the backward, ``Optimizer.update``
+    and the row pinning. On a card the device's part is a
+    ``utils.graphs.SignatureGraphs`` over ``state``: one CUDA graph per
+    batch signature with the dropout generator registered, the first call
+    of a signature being its eager step, later calls replays. It stays
+    eager where :func:`eager_reason` gives a reason. ``step.graphs`` is
+    that ``SignatureGraphs`` once the first call with ``state`` made it,
+    else None."""
     size = mesh.size if mesh is not None else 1
 
-    def train_step(state: TrainState, q: Dict[str, torch.Tensor],
-                   ocr: Dict[str, torch.Tensor], od: Dict[str, torch.Tensor],
-                   targets: torch.Tensor):
+    def device_step(state: TrainState, q: Dict[str, torch.Tensor],
+                    ocr: Dict[str, torch.Tensor], od: Dict[str, torch.Tensor],
+                    targets: torch.Tensor) -> torch.Tensor:
         if debug_nans:
             _check_inputs(q, ocr, od, targets)
         model, opt = state.model, state.optimizer
         model.train()
+        # a capture's backward then writes fresh gradients into its pool
         opt.zero_grad()
         scores = model(q, ocr, od)
         if debug_nans:
@@ -107,11 +127,27 @@ def make_train_step(
             _check_finite(torch.isfinite(loss),
                           "NaN/Inf loss (SDNetTrainer.py:352-359 sentinel)")
         (loss / size if size > 1 else loss).backward()
-        opt.step()
+        opt.update()
         row_pinner()
-        state.step += 1
-        return state, dp_mean(loss.detach(), mesh)
+        return loss.detach()
 
+    def train_step(state: TrainState, q, ocr, od, targets):
+        if train_step.state is not state:
+            train_step.state, train_step.graphs = state, None
+            device = next(state.model.parameters()).device
+            if eager_reason(device, mesh, debug_nans, graphs) is None:
+                train_step.graphs = SignatureGraphs(
+                    functools.partial(device_step, state), device,
+                    generators=(state.generator,))
+        state.optimizer.advance()
+        if train_step.graphs is None:
+            loss = device_step(state, q, ocr, od, targets)
+        else:  # the graph's loss is overwritten by its next replay
+            loss = train_step.graphs(q, ocr, od, targets).clone()
+        state.step += 1
+        return state, dp_mean(loss, mesh)
+
+    train_step.state = train_step.graphs = None
     return train_step
 
 
@@ -136,14 +172,14 @@ def dp_gather(x: torch.Tensor, mesh) -> torch.Tensor:
 
 def eager_reason(device: torch.device, mesh=None, debug_nans: bool = False,
                  graphs: bool = True) -> Optional[str]:
-    """Why :func:`make_eval_step` keeps the step eager, or None when it
-    replays CUDA graphs. Each reason is a condition the caller sets:
-    ``graphs=False`` (the port's ``jax.disable_jit``), a model on the CPU,
-    a ``mesh`` (its collectives run on gloo, which a graph cannot capture;
-    NCCL capture needs a host with several cards to be tried), and
-    ``debug_nans`` (its check reads each step's scores on the host, which
-    a capture cannot do; the eager step checks every call and stops at the
-    first NaN)."""
+    """Why :func:`make_eval_step` or :func:`make_train_step` keeps its step
+    eager, or None when it replays CUDA graphs. Each reason is a condition
+    the caller sets: ``graphs=False`` (the port's ``jax.disable_jit``), a
+    model on the CPU, a ``mesh`` (its collectives run on gloo, which a
+    graph cannot capture; NCCL capture needs a host with several cards to
+    be tried), and ``debug_nans`` (its check reads each step's scores on
+    the host, which a capture cannot do; the eager step checks every call
+    and stops at the first NaN)."""
     if not graphs:
         return "graphs=False"
     if device.type != "cuda":

@@ -30,9 +30,13 @@ folder, preprocesses, and writes checkpoints (tp shards gathered to it)
 and ``submission.json``. A process that sees several cards without a
 world drives one of them; ``cli.main`` starts one rank per card.
 ``debug_nans`` (the CLI key) and ``DEBUG_NANS`` check every step's outputs
-for NaN/Inf (``train_step``). ``DEBUG`` makes :meth:`Trainer.train` a dry
-run of the data path: it scans every split without the model, writes the
-length histograms (``data/debug.py``) and returns.
+for NaN/Inf (``train_step``). On one card the train and eval steps replay
+one CUDA graph per batch signature (``train_step.make_train_step`` and
+``make_eval_step``); each train step hands back a loss of its own, which
+``DEBUG_SDT`` prints and the log cadence stacks. ``DEBUG`` makes
+:meth:`Trainer.train` a dry run of the data path: it scans every split
+without the model, writes the length histograms (``data/debug.py``) and
+returns.
 """
 
 from __future__ import annotations

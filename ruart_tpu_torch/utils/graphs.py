@@ -12,18 +12,30 @@ signature, replayed as one launch.
   targets) and each tensor's shape and dtype.
 * **The first call of a signature** copies its arguments into static
   input tensors (every dict key its own copy, also where one tensor stands
-  under several keys, so a later call may alias its keys differently),
-  runs the step once eagerly on a side stream (the lazy set-up a capture
-  must not see: the kernel's build and its shared-memory attribute,
-  cuDNN's plans, cuBLAS's workspace), then captures it on that stream.
-  Later calls copy their arguments into the static inputs and replay.
-* **Outputs** are the graph's static outputs, which the next replay of the
-  same graph overwrites: the caller copies them out (or enqueues the copy,
+  under several keys, so a later call may alias its keys differently)
+  and runs the step on them eagerly on a side stream: that run is the
+  call, and its results are returned. It also does the lazy set-up a
+  capture must not see (the kernel's build and its shared-memory
+  attribute, cuDNN's plans, cuBLAS's workspace). Then the step is
+  captured on that stream for the signature's later calls; a capture
+  executes nothing, so a step that updates state (a train step) takes
+  exactly one update per call. Later calls copy their arguments into the
+  static inputs and replay.
+* **Random numbers:** each generator in ``generators`` is registered with
+  every graph (``CUDAGraph.register_generator_state``): a replay reads
+  the generator's state at its launch and advances it as the eager step
+  would, so it draws what the eager step would draw. A generator used in
+  a capture without being registered makes the capture fail.
+* **Outputs** of a replay are the graph's static outputs, which the next
+  replay of the same graph, or of another graph of the same pool,
+  overwrites: the caller copies them out (or enqueues the copy,
   ``data.pipeline.fetch_async``) before that replay, on the same stream.
   Copies and replays run on the caller's current stream.
 * **Memory:** the graphs of one :class:`SignatureGraphs` share one memory
-  pool. The graphs never run concurrently (one stream), so one graph's
-  intermediates may reuse another's.
+  pool of their own. The graphs never run concurrently (one stream), so
+  one graph's intermediates may reuse another's; whatever must outlive a
+  replay (parameters, optimizer state, the generator's state, static
+  inputs) is allocated outside the pool.
 * **Threads:** the capture runs with ``capture_error_mode="thread_local"``:
   another thread's CUDA calls (a serving front end's host-to-device copies
   and pinned allocations) do not invalidate it. One thread calls the step
@@ -31,7 +43,8 @@ signature, replayed as one launch.
 * **Launch counts:** a kernel wrapper counts a launch when Python calls it,
   which a replay does not do. Each graph records how far the counters of
   ``ops.attention`` moved during its capture, takes that back (a capture
-  launches nothing) and adds it at each replay.
+  launches nothing) and adds it at each replay, so every call counts what
+  an eager call would.
 * **Failures raise.** A capture or a replay that fails raises RuntimeError
   naming the signature; nothing falls back to eager. ``eager_when`` names
   the one call-time condition under which the caller wants the step run
@@ -88,7 +101,8 @@ def copy_into(static, args) -> None:
 @dataclasses.dataclass
 class Graph:
     """One captured signature: its graph, static inputs and outputs, the
-    kernel launches one replay makes, and the capture's seconds."""
+    kernel launches one replay makes, and the seconds of the signature's
+    first call (its eager run and the capture)."""
 
     graph: Any
     inputs: Tuple
@@ -100,14 +114,17 @@ class Graph:
 class SignatureGraphs:
     """``fn(*args)`` replayed from one CUDA graph per :func:`signature` of
     ``args`` (see the module doc); ``fn`` returns a tensor or a tuple of
-    tensors and reads only its arguments and state whose storage stays in
-    place (parameters updated in place)."""
+    tensors and reads only its arguments, the generators in
+    ``generators`` and state whose storage stays in place (parameters and
+    moments updated in place)."""
 
     def __init__(self, fn: Callable, device: torch.device,
-                 eager_when: Optional[Callable[[], bool]] = None):
+                 eager_when: Optional[Callable[[], bool]] = None,
+                 generators: Tuple[torch.Generator, ...] = ()):
         self.fn = fn
         self.device = torch.device(device)
         self.eager_when = eager_when
+        self.generators = tuple(generators)
         self.graphs: Dict[Tuple, Graph] = {}
         self.pool = None     # made at the first capture
         self._stream = None
@@ -121,9 +138,9 @@ class SignatureGraphs:
         key = signature(args)
         entry = self.graphs.get(key)
         if entry is None:
-            entry = self.graphs[key] = self._capture(key, args)
-        else:
-            copy_into(entry.inputs, args)
+            self.graphs[key], result = self._capture(key, args)
+            return result
+        copy_into(entry.inputs, args)
         try:
             entry.graph.replay()
         except RuntimeError as e:
@@ -132,7 +149,9 @@ class SignatureGraphs:
         add_launches(entry.launches)
         return entry.outputs
 
-    def _capture(self, key, args) -> Graph:
+    def _capture(self, key, args) -> Tuple[Graph, Any]:
+        """The signature's first call, run eagerly on the side stream, then
+        its capture. Returns the graph and the call's results."""
         t0 = time.perf_counter()
         try:
             if self.pool is None:
@@ -142,8 +161,10 @@ class SignatureGraphs:
             caller = torch.cuda.current_stream(self.device)
             self._stream.wait_stream(caller)
             with torch.cuda.stream(self._stream):
-                self.fn(*inputs)  # lazy set-up, outside the capture
+                result = self.fn(*inputs)  # this call, and the lazy set-up
             graph = torch.cuda.CUDAGraph()
+            for generator in self.generators:
+                graph.register_generator_state(generator)
             before = launch_counts()
             with torch.cuda.graph(graph, pool=self.pool, stream=self._stream,
                                   capture_error_mode="thread_local"):
@@ -155,4 +176,4 @@ class SignatureGraphs:
             raise RuntimeError(f"CUDA graph capture failed for signature "
                                f"{key}: {e}") from e
         return Graph(graph, inputs, outputs, launches,
-                     time.perf_counter() - t0)
+                     time.perf_counter() - t0), result

@@ -36,12 +36,14 @@ VOCAB = 60
 
 @pytest.fixture(scope="module")
 def models():
+    """The flax model's jitted ``apply`` (one compile per input signature
+    instead of one per operation), its init and the port's model."""
     jm = JaxBertModel(JaxBertConfig.tiny(vocab_size=VOCAB))
     ids = jnp.ones((2, 8), jnp.int32)
-    params = jm.init(jax.random.PRNGKey(0), ids)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0), ids)
     tm = BertModel(BertConfig.tiny(vocab_size=VOCAB))
     tm.load_state_dict(from_jax_params(jax.tree.map(np.asarray, params)))
-    return jm, params, tm.eval()
+    return jax.jit(jm.apply), params, tm.eval()
 
 
 def _dense_rows(rng, R, L):
@@ -71,9 +73,9 @@ def _t(x):
 
 
 def test_dense_rows(models):
-    jm, params, tm = models
+    apply, params, tm = models
     ids, mask = _dense_rows(np.random.RandomState(0), 5, 12)
-    j_layers, j_pooled = jm.apply(params, jnp.asarray(ids), jnp.asarray(mask))
+    j_layers, j_pooled = apply(params, jnp.asarray(ids), jnp.asarray(mask))
     with torch.no_grad():
         t_layers, t_pooled = tm(_t(ids), _t(mask))
     np.testing.assert_allclose(t_layers.numpy(), np.asarray(j_layers),
@@ -84,12 +86,12 @@ def test_dense_rows(models):
 
 @pytest.mark.parametrize("combine", [False, True], ids=["layers", "combined"])
 def test_segment_packed_rows(models, combine):
-    jm, params, tm = models
+    apply, params, tm = models
     ids, seg, pos = _packed_rows(np.random.RandomState(1), 4, 16)
     w = np.array(jax.nn.softmax(jnp.arange(3.0)) * 0.7, np.float32)
     jw = jnp.asarray(w) if combine else None
     tw = torch.from_numpy(w) if combine else None
-    j_out, _ = jm.apply(params, jnp.asarray(ids), None, combine_weights=jw,
+    j_out, _ = apply(params, jnp.asarray(ids), None, combine_weights=jw,
                         segment_ids=jnp.asarray(seg), position_ids=jnp.asarray(pos))
     with torch.no_grad():
         t_out, _ = tm(_t(ids), None, combine_weights=tw, segment_ids=_t(seg),
@@ -103,7 +105,7 @@ def test_segment_packed_rows(models, combine):
 def test_fused_q_ocr_od_rows(models):
     """q rows join in segment form (seg = mask, pos = arange) beside the
     packed OCR and OD tables, as RUArtModel._fused_bert concatenates them."""
-    jm, params, tm = models
+    apply, params, tm = models
     rng = np.random.RandomState(2)
     q_ids, q_mask = _dense_rows(rng, 3, 16)
     q_pos = np.broadcast_to(np.arange(16, dtype=np.int32), q_ids.shape)
@@ -111,7 +113,7 @@ def test_fused_q_ocr_od_rows(models):
               _packed_rows(rng, 2, 16)]
     ids, seg, pos = (np.concatenate([b[i] for b in blocks]) for i in range(3))
     w = np.full(3, 1 / 3, np.float32)
-    j_out, j_pooled = jm.apply(
+    j_out, j_pooled = apply(
         params, jnp.asarray(ids), None, combine_weights=jnp.asarray(w),
         segment_ids=jnp.asarray(seg), position_ids=jnp.asarray(pos),
     )

@@ -10,7 +10,7 @@ on the CPU, where no graph can be captured:
 * a stand-in for ``torch.cuda``'s graph API runs the capture and replay
   logic on the CPU: a capture takes its launches back, each replay adds
   them, so the launch counts of a replayed run equal an eager run's (the
-  first call's eager set-up run counted once), and a replay's outputs are
+  first call of a signature is its eager run), and a replay's outputs are
   the static ones, overwritten with each call's values;
 * ``make_eval_step`` and ``InferenceEngine`` on the CPU stay eager, and
   the eval step matches the JAX package's jitted ``make_eval_step``
@@ -152,13 +152,16 @@ def test_replays_count_as_eager_launches(monkeypatch):
     graphed = SignatureGraphs(step, torch.device("cpu"))
     runs = [_blocks(seed) for seed in (0, 1, 2)]
     got = [graphed(q, ocr, None) for q, ocr in runs]
-    # one graph, the same static outputs every call
-    assert len(graphed) == 1 and all(g[0] is got[0][0] for g in got)
-    # 3 calls replayed + the first call's eager set-up run, none at capture
-    assert att.attention_rows_cuda.launches - before[0] == 3 * 3 + 3
+    # one graph; the first call is its eager run, the replays return the
+    # same static outputs
+    assert len(graphed) == 1 and got[1][0] is got[2][0]
+    assert got[0][0] is not got[1][0]
+    # the first call's eager run + 2 replays, none at capture
+    assert att.attention_rows_cuda.launches - before[0] == 3 * 3
     last = tuple(t.clone() for t in got[-1])
     want = step(*runs[-1], None)
     assert all(torch.equal(a, b) for a, b in zip(last, want))
+    assert torch.equal(got[0][0], step(*runs[0], None)[0])
     (entry,) = graphed.graphs.values()
     assert entry.launches == (3, 0, 0, 0)
     graphed(*_blocks()[:1], {"ids": torch.zeros(2, 5, dtype=torch.long)},

@@ -11,6 +11,8 @@ dense grids without fusion or compaction, and dense candidate rows wider
 than max_position_embeddings (the chunked encoder loop).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -99,8 +101,15 @@ VOCAB_SIZE = len(build_demo_vocab())
 
 @pytest.fixture(scope="module")
 def flax_params():
+    return shared_flax_params()
+
+
+@functools.lru_cache(maxsize=None)
+def shared_flax_params():
     """One flax init for every layout (the layouts change no parameter
-    shape but the position table, which the chunked layout cuts)."""
+    shape but the position table, which the chunked layout cuts), made
+    once per process: every test file that takes the ``flax_params``
+    fixture from here shares it, and only reads it."""
     cfg = JaxConfig(_opt({}))
     spec = JaxModelSpec.from_config(cfg, JaxBertConfig.tiny(vocab_size=VOCAB_SIZE))
     q, ocr, od, _ = make_synthetic_batch(spec, cfg, 2, seed=0)

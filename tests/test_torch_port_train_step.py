@@ -22,6 +22,8 @@ direction rounding decides: such elements (|JAX gradient| < 1e-7) are held
 only to Adamax's own bound, at most lr per step from where they started.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -86,13 +88,13 @@ def train_batch(opt):
     return Collator(cfg)([ds[i] for i in range(len(ds))])
 
 
-@pytest.fixture(scope="module")
-def batch():
+@functools.lru_cache(maxsize=None)
+def shared_batch():
     return train_batch(_opt(True))
 
 
-@pytest.fixture(scope="module")
-def flax_params():
+@functools.lru_cache(maxsize=None)
+def shared_flax_params():
     """Random weights as a flax tree (the port's seeded init through
     ``convert.to_jax_params``; the checkpoint tests hold that tree to a
     flax init's structure)."""
@@ -100,6 +102,24 @@ def flax_params():
                                  BertConfig.tiny(vocab_size=VOCAB_SIZE))
     model = RUArtModel(spec).init_weights(torch.Generator().manual_seed(0))
     return to_jax_params(model)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_reference(lock_bert: bool):
+    """:func:`jax_two_steps` from the shared weights and batch, run once
+    per process (``test_torch_port_train_graphs.py`` holds the graph path
+    to the same run); callers only read it."""
+    return jax_two_steps(_opt(lock_bert), shared_flax_params(), shared_batch())
+
+
+@pytest.fixture(scope="module")
+def batch():
+    return shared_batch()
+
+
+@pytest.fixture(scope="module")
+def flax_params():
+    return shared_flax_params()
 
 
 def _jax_model(opt):
@@ -166,7 +186,7 @@ def port_two_steps(opt, params, batch):
 @pytest.mark.parametrize("lock_bert", [True, False], ids=["lock_bert", "bert_unlocked"])
 def test_two_train_steps_match_jax(lock_bert, batch, flax_params, jax_grads):
     opt = _opt(lock_bert)
-    want_loss, want_params = jax_two_steps(opt, flax_params, batch)
+    want_loss, want_params = jax_reference(lock_bert)
     got_loss, got_grads, got_params = port_two_steps(opt, flax_params, batch)
     np.testing.assert_allclose(got_loss, want_loss, rtol=LOSS_RTOL)
 
