@@ -6,10 +6,12 @@
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and exits
 non-zero when there is none, or when any phase fails:
 
-1. Build ``ruart_tpu_torch/csrc/attention.cu`` with nvcc (print each
+1. Build ``ruart_tpu_torch/csrc/attention.cu`` and ``attention_bf16.cu``
+   with nvcc, one process per source started together (print each
    kernel's registers and spills from ``-Xptxas -v`` and the blocks an SM
-   keeps resident at the timed shapes) and hold the model-layout kernel
-   (K1/K2) against its plain PyTorch version on the card: both bias forms,
+   keeps resident at the timed shapes) and hold the model-layout kernels
+   (K1/K2: ``attention.cu`` in fp32, ``attention_bf16.cu`` in bf16)
+   against their plain PyTorch version on the card: both bias forms,
    fp32 and bf16, at the serving path's shapes (H 12, dh 64, L 32 and 50,
    hundreds of rows), at L 512 and at dh 48, then at the edges of the
    kernel's tiling (L 1, 17, 65, 128 and 130; dh 8 and 128), with an
@@ -21,8 +23,10 @@ non-zero when there is none, or when any phase fails:
    48, 128) every query row keeps a valid key. Then fp32 cases off the grid
    (not exact in TF32, every query keeping a valid key) at the serving
    shape and at L 128: a kernel that dropped its 3xTF32 split would miss
-   1e-5 there. Last, q/k/v at an address off 16-byte alignment, which the
-   kernel stages element by element.
+   1e-5 there. Then q/k/v at an address off 16-byte alignment, which the
+   kernels stage element by element. Last, a race check: 200 launches of
+   the bf16 kernel on the same inputs at the serving shape and at (8, 512,
+   12, 64), segment bias, must each be byte-equal to the first.
 2. Serve 40 synthetic requests through ``InferenceEngine.predict`` at the
    flagship width (``stvqa_config(vocab_size=5000, batch_size=16)``,
    BERT-base, random weights from a seeded ``torch.Generator``): three
@@ -104,8 +108,9 @@ non-zero when there is none, or when any phase fails:
    must lie no further apart than plain bf16 lies from fp32, and the two
    bf16 runs must agree on at least 38 of the 40 answers; q/s of bf16 and
    fp32 in turns (for information); K1 bf16 timed at the serving shape
-   beside SDPA in bf16 and its bound (bytes, or one-pass TF32 products at
-   495 TFLOP/s: bf16 operands are exact in TF32). (b) ``BF16`` with
+   beside SDPA in bf16 and its bound (bytes, or bf16 products at the data
+   sheet's dense 989 TFLOP/s), and at the chunk shape of phase 11 (4 x L
+   512, key bias; printed, not checked). (b) ``BF16`` with
    ``INT8_BERT``: one pass, finite scores. (c) ``BF16`` training through
    ``cli.main``: 10 steps of the shipped train conf at batch 16 in phase
    6's folder, every loss finite and K1 in bf16 in every step; then one
@@ -161,7 +166,12 @@ non-zero when there is none, or when any phase fails:
    against plain within 1e-4. (d) ``forward_with_attention`` on a serving
    batch: scores within 1e-6 of the forward ``predict`` runs, every alpha
    finite with rows summing to 1, and as many device kernels per forward
-   with recording off as with it on. (e) One forward inside
+   with recording off (before and after) as with it on: each of the three
+   counts is the most frequent of 3 profiled forwards, each region
+   starting with spin kernels left out of the count (the profiler misses
+   a session's first events now and then; the raw counts are printed).
+   (e) One
+   forward inside
    ``profiler_trace``: its trace names K1's kernel. Every path runs with
    the counts set to 0 and must launch K1 12 times per batch, chunk or
    step.
@@ -196,8 +206,12 @@ non-zero when there is none, or when any phase fails:
    atomics), then graphs against eager: in fp32 and ``BF16`` byte-equal
    (losses and every trainable parameter) under PyTorch's deterministic
    kernels, where two eager arms are byte-equal; with ``LOCK_BERT`` off,
-   which does not capture under those kernels, within twice the largest
-   spread of three eager arms. Losses and max |param diff| printed. (b)
+   which does not capture under those kernels, the median difference of
+   three runs of a graph arm (the second and third reset it in place and
+   replay its captures) from an eager arm within twice the largest spread
+   of three eager arms (one run's difference is a draw from the same
+   spread, and failed that limit once with nothing wrong). Losses, max
+   |param diff| and each check's margin printed. (b)
    K1 12 launches per step on both paths by the replay-aware count (in
    bf16 under ``BF16``); kernel-launch calls and graph launches per step
    on the host (profiler). (c) fp32 eager against graphs in turns: 3
@@ -207,13 +221,17 @@ non-zero when there is none, or when any phase fails:
    draws replayed equal to eager's; a capture with an unregistered one
    raises, naming the signature.
 
+Checks whose pass depends on chance (a timing, a profiler count, the
+spread of runs that add with atomics) print their margin, the value over
+its limit.
+
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.
 """
 
 import collections
 import contextlib
-import ctypes
+import faulthandler
 import json
 import math
 import os
@@ -230,8 +248,8 @@ H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 # fp32-accurate products on the tensor cores: 3xTF32, a third of the data
 # sheet's 495 TFLOP/s TF32 (fp32 outside the tensor cores is 67 TFLOP/s)
 H100_TF32X3_FLOP_PER_S = 495e12 / 3
-# bf16 operands are exact in TF32: one product per pair at the TF32 rate
-H100_TF32_FLOP_PER_S = 495e12
+# bf16 products on the tensor cores, dense (H100 SXM data sheet)
+H100_BF16_FLOP_PER_S = 989e12
 COLD_BYTES = 100 * 10**6        # inputs rotated through per timing (L2: 50 MB)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SCORE_TOL = 1e-4
@@ -407,6 +425,32 @@ def check_kernel(att):
     return by_kernel
 
 
+RACE_SHAPES = (SERVE_SHAPE, (8, 512, 12, 64, True))
+RACE_LAUNCHES = 200
+
+
+def race_check(att):
+    """Phase 1: RACE_LAUNCHES launches of the bf16 kernel on the same inputs
+    at each of RACE_SHAPES, every output byte-equal to the first: a read of
+    shared memory before its copy has landed, or a tile refilled while a
+    warp still reads it, shows as an output that changes between launches."""
+    import torch
+
+    for B, L, H, dh, bias_2d in RACE_SHAPES:
+        x = make_inputs(B, L, H, dh, torch.bfloat16, bias_2d, 120,
+                        on_grid=False)
+        first = att.attention_rows_cuda(*x, H)
+        apart = sum(not torch.equal(att.attention_rows_cuda(*x, H), first)
+                    for _ in range(RACE_LAUNCHES - 1))
+        torch.cuda.synchronize()
+        log(f"phase 1: race check at {(B, L, H, dh, bias_2d)}: "
+            f"{RACE_LAUNCHES} launches of the bf16 kernel, {apart} not "
+            f"byte-equal to the first")
+        if apart:
+            raise AssertionError("the bf16 attention kernel is not "
+                                 "deterministic")
+
+
 def cold_ms(fn, sets, iters: int = 20) -> float:
     """Device ms per call of ``fn(*inputs)``, rotating over ``sets`` of
     inputs that hold more than COLD_BYTES together, so each call finds its
@@ -463,7 +507,8 @@ def time_kernel(att, shape, dtype_name="float32"):
     """Kernel, plain and SDPA times (ms) at one (rows, L, heads, dh,
     segment-bias) shape in fp32 or bf16 inputs, plus the card's bound for
     that work: bytes (q, k, v and the output in the input type, the fp32
-    bias) or products (3xTF32 for fp32, one-pass TF32 for bf16). SDPA gets
+    bias) or products (3xTF32 for fp32, the bf16 tensor cores' dense rate
+    for bf16). SDPA gets
     the bias in the input type, as it requires."""
     import torch
     import torch.nn.functional as F
@@ -481,7 +526,7 @@ def time_kernel(att, shape, dtype_name="float32"):
         return F.scaled_dot_product_attention(qh, kh, vh,
                                               attn_mask=mask.to(dtype))
 
-    rate = H100_TF32_FLOP_PER_S if dtype == torch.bfloat16 else \
+    rate = H100_BF16_FLOP_PER_S if dtype == torch.bfloat16 else \
         H100_TF32X3_FLOP_PER_S
     return timed(lambda *x: att.attention_rows_cuda(*x, H),
                  lambda *x: att.attention_rows_plain(*x, H), sdpa, sets,
@@ -705,9 +750,12 @@ def serve_stack(params, reqs, phase2, drive):
 
     # (c) BatchingServer: a burst of the 40 requests on the server's new
     # threads, the same burst again, then a lone request
+    submit_ms = []
     with BatchingServer(engine, max_wait_ms=10) as server:
         def burst():
+            t0 = time.perf_counter()
             futs = [server.submit(r) for r in reqs]
+            submit_ms.append((time.perf_counter() - t0) * 1e3)
             return [f.result(timeout=300) for f in futs]
 
         bursts = []
@@ -726,6 +774,7 @@ def serve_stack(params, reqs, phase2, drive):
         f"{bursts[0][0]:.2f} q/s, stats {json.dumps(bursts[0][1])}; burst 2 "
         f"{bursts[1][0]:.2f} q/s; lone request {lone_ms:.2f} ms "
         f"({lone['answer']!r}); stats over all {json.dumps(stats)}")
+    log_wave_margin("8 (c)", submit_ms, server)
     if stats["batches"] != 2 * n_batches + 1:
         raise AssertionError(f"phase 8: the server ran {stats['batches']} "
                              f"waves, expected {2 * n_batches + 1}")
@@ -768,6 +817,17 @@ def serve_stack(params, reqs, phase2, drive):
     if not diff <= SCORE_TOL:
         raise AssertionError("phase 8: the int8 kernel path and the int8 "
                              "plain path disagree")
+
+
+def log_wave_margin(label, submit_ms, server):
+    """A burst forms full waves only if the gather thread finds its
+    requests queued within ``max_wait_ms`` of the first: the wave count
+    depends on the time the burst takes to submit. Prints that margin."""
+    limit = server.max_wait_s * 1e3
+    log(f"phase {label}: bursts submitted in "
+        f"{[round(x, 3) for x in submit_ms]} ms; margin of the wave count "
+        f"(value / limit, max_wait_ms {limit:g}) "
+        f"{max(submit_ms) / limit:.3f}")
 
 
 def serve_clis(folder, conf_predict, reqs, drive):
@@ -1205,7 +1265,8 @@ def compare_plain_step(att, trainer, batch):
         f"global gradient norm {worst_grad:.2e} ({grad_name}; plain against "
         f"itself {floor_grad:.2e}); max |param kernel - param plain| where "
         f"the gradient is settled {worst:.3e} ({worst_name}, tol {0.05 * LR:g}); "
-        f"every element within lr of its start")
+        f"every element within lr of its start; margins (value / limit): "
+        f"loss {rel / 1e-5:.3f}, parameters {worst / (0.05 * LR):.3f}")
     if not (rel <= 1e-5 and worst <= 0.05 * LR):
         raise AssertionError("phase 7: the kernel's train step and the plain "
                              "version's disagree")
@@ -1236,7 +1297,9 @@ def bf16_serving(params, reqs, drive):
     log(f"phase 9 (a): max |score| kernel bf16 - plain bf16 {d_kp:.3e}, "
         f"plain bf16 - fp32 {d_pf:.3e}, kernel bf16 - fp32 {d_kf:.3e}; "
         f"answers kernel bf16 = plain bf16 on {agree}/{N_REQUESTS}, "
-        f"kernel bf16 = fp32 on {agree32}/{N_REQUESTS}")
+        f"kernel bf16 = fp32 on {agree32}/{N_REQUESTS}; margins (value / "
+        f"limit): scores {d_kp / d_pf:.3f}, answers apart "
+        f"{(N_REQUESTS - agree) / 2:.2f}")
     if not (all(math.isfinite(r["score"]) for r in got) and d_kp <= d_pf
             and agree >= N_REQUESTS - 2):
         raise AssertionError("phase 9: the bf16 kernel path is further from "
@@ -1709,7 +1772,9 @@ def mesh_ranks(att, work, engine, params, kernel_scores, device="cuda"):
             f" vs {want_loss:.7f} (rel {rel:.2e}, tol 1e-5); worst "
             f"|grad - grad single| over the global gradient norm "
             f"{grad_worst:.2e}; updated parameters max |diff| {worst:.3e} "
-            f"over {settled_n} settled elements (tol {0.05 * lr:g})")
+            f"over {settled_n} settled elements (tol {0.05 * lr:g}); margins "
+            f"(value / limit): scores {diff / SCORE_TOL:.3f}, loss "
+            f"{rel / 1e-5:.3f}, parameters {worst / (0.05 * lr):.3f}")
         if not (diff <= SCORE_TOL and rel <= 1e-5 and worst <= 0.05 * lr):
             failures.append(f"{label} disagrees with the single-process path")
     if any(v != "ok" for v in ranks[0]["probe"].values()):
@@ -2005,19 +2070,44 @@ def chunked_bert(att, params, engine, reqs, drive, device="cuda"):
     return timing
 
 
+WARMUP_SPINS = 20  # spin kernels a profiled region starts with
+
+
 def device_kernels(fn) -> int:
-    """Device kernels ``fn`` launches (torch.profiler; copies and memsets
-    left out). The device finishes inside the profiled region: a kernel
-    still running when the profiler stops may go unrecorded."""
+    """Device kernels ``fn`` launches (torch.profiler; copies, memsets and
+    the warm-up's spin kernels left out). A session can miss the first
+    kernels it sees: in a process that had run many sessions, most counts
+    of phase 11 (d)'s forward came out 8-10 short and some whole (722-724
+    where a fresh process counts 732, on an H100). So the region starts
+    with WARMUP_SPINS spin kernels and a synchronize before ``fn``. The
+    device finishes inside the region: a kernel still running when the
+    profiler stops may go unrecorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(WARMUP_SPINS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     return sum(e.count for e in prof.key_averages()
                if str(getattr(e, "device_type", "")) == "DeviceType.CUDA"
-               and not e.key.startswith(("Memcpy", "Memset")))
+               and not e.key.startswith(("Memcpy", "Memset"))
+               and "spin_kernel" not in e.key)
+
+
+PROFILED_RUNS = 3
+
+
+def kernel_count(fn):
+    """(the most frequent of PROFILED_RUNS :func:`device_kernels` counts of
+    ``fn``, the raw counts). The profiler now and then drops events of a
+    run, so one count is not the forward's. Three different counts: the
+    largest (a dropped event only lowers a count)."""
+    raw = [device_kernels(fn) for _ in range(PROFILED_RUNS)]
+    top = collections.Counter(raw).most_common()
+    return max(c for c, n in top if n == top[0][1]), raw
 
 
 def attention_maps(engine, reqs, root, drive, device="cuda"):
@@ -2042,7 +2132,7 @@ def attention_maps(engine, reqs, root, drive, device="cuda"):
     diff = (scores - want).abs().max().item()
     sums = max((a.sum(-1) - 1).abs().max().item() for a in alphas.values())
     finite = all(bool(a.isfinite().all()) for a in alphas.values())
-    counts, first = {}, None
+    counts, raw, first = {}, {}, None
     if device == "cuda":
         with torch.inference_mode():
             run = lambda: engine.model(*blocks)  # noqa: E731
@@ -2050,15 +2140,17 @@ def attention_maps(engine, reqs, root, drive, device="cuda"):
             # device_kernels one run counted 736 kernels and copies here
             # against 744 in the two counts after it
             first = device_kernels(run)
-            counts["off, before"] = device_kernels(run)
-            counts["recording"] = device_kernels(
-                lambda: forward_with_attention(engine.model, *blocks))
-            counts["off, after"] = device_kernels(run)
+            for arm, fn in (("off, before", run),
+                            ("recording", lambda: forward_with_attention(
+                                engine.model, *blocks)),
+                            ("off, after", run)):
+                counts[arm], raw[arm] = kernel_count(fn)
     log(f"phase 11 (d): {len(alphas)} attention maps "
         f"({', '.join(sorted(alphas)[:4])}, ...), scores vs predict's forward "
         f"max |diff| {diff:.3e} (tol 1e-6), alphas finite {finite}, worst "
-        f"|row sum - 1| {sums:.3e}; device kernels per forward {counts} "
-        f"(first profiled forward {first})")
+        f"|row sum - 1| {sums:.3e}; device kernels per forward, the most "
+        f"frequent of {PROFILED_RUNS} counts each, {counts} (raw counts "
+        f"{raw}; first profiled forward {first})")
     if not (diff <= 1e-6 and finite and sums <= 1e-5 and len(alphas) >= 6
             and len(set(counts.values())) <= 1):
         raise AssertionError("phase 11: forward_with_attention disagrees")
@@ -2225,10 +2317,17 @@ def graph_server(params, reqs, want, drive, device="cuda"):
     n_batches = -(-N_REQUESTS // 16)
     g, _ = build_engine("auto", params, device=device)
     eager, _ = build_engine("auto", params, device=device, graphs=False)
+    submit_ms = []
+
+    def burst():
+        t0 = time.perf_counter()
+        futs = [server.submit(r) for r in reqs]
+        submit_ms.append((time.perf_counter() - t0) * 1e3)
+        return [f.result(timeout=300) for f in futs]
+
     with BatchingServer(g, max_wait_ms=10) as server:
-        served = drive("(c) BatchingServer burst, graphs met cold",
-                       lambda: [f.result(timeout=300) for f in
-                                [server.submit(r) for r in reqs]], n_batches)
+        served = drive("(c) BatchingServer burst, graphs met cold", burst,
+                       n_batches)
         lone = drive("(c) BatchingServer lone request, graphs",
                      lambda: server.predict_one(reqs[0], timeout=300), 1)
         stats = server.stats()
@@ -2242,6 +2341,7 @@ def graph_server(params, reqs, want, drive, device="cuda"):
     log(f"phase 12 (c): {stats['batches']} waves, {g.graph_count} graphs "
         f"captured inside dispatch for {len(sigs)} signatures; stats "
         f"{json.dumps(stats)}")
+    log_wave_margin("12 (c)", submit_ms, server)
     if not (stats["batches"] == n_batches + 1 and g.graph_count == len(sigs)):
         raise AssertionError("phase 12: the server's graphs do not match "
                              "its signatures")
@@ -2481,6 +2581,7 @@ N_GRAPH_STEPS = 10
 N_GRAPH_BATCHES = 5   # the 10 steps take batches 0-4 twice: 5 replays or more
 TRAIN_SEED = 0        # the dropout generator's seed in every arm
 ARM_SPREAD = 2        # graph vs eager held to this many eager-vs-eager spreads
+GRAPH_RUNS = 3        # runs of a graph arm whose median difference is held to it
 
 
 def train_graph_cost(step):
@@ -2529,6 +2630,18 @@ def run_arm(step, state, batches):
             {n: p.detach().clone() for n, p in state.optimizer.params.items()})
 
 
+def rerun_arm(setup, step, state, batches, opt_state):
+    """The arm's steps again from its start: the weights, the optimizer's
+    moments and count (``opt_state``, its state before the first step) and
+    the dropout generator reset in place, so a graph arm replays the graphs
+    its first run captured and captures none."""
+    state.model.load_state_dict(setup["weights"])
+    state.optimizer.load_state_dict(opt_state)
+    state.generator.manual_seed(TRAIN_SEED)
+    state.step = 0
+    return run_arm(step, state, batches)
+
+
 def arm_diff(a, b):
     """(max relative loss difference over the steps, max and mean |param
     difference|) between two arms' results."""
@@ -2565,10 +2678,15 @@ def train_graph_equality(setup, drive, device="cuda"):
     byte-stable under PyTorch's deterministic kernels, which they capture:
     there the graph arm must be byte-equal to the eager one. LOCK_BERT off
     does not capture under them (the capture is invalidated: "operation not
-    permitted when stream is capturing"), so there the graph arm, on the
-    default kernels, stays within ARM_SPREAD times the largest spread of
-    three eager arms. K1 12 per step on both paths (replay-aware), in bf16
-    under BF16. Returns the fp32 arms for the timing."""
+    permitted when stream is capturing"), so there the median difference of
+    GRAPH_RUNS runs of a graph arm (on the default kernels; the later runs
+    reset it and replay its captures) from an eager arm stays within
+    ARM_SPREAD times the largest spread of three eager arms: a single run's
+    difference is one more draw from the spread the limit is taken from,
+    and it failed the limit once with nothing wrong. (Three graph arms of
+    their own, three times the captures, crash a later profiled replay of
+    the process on an H100.) K1 12 per step on both paths (replay-aware),
+    in bf16 under BF16. Returns the fp32 arms for the timing."""
     base = dict(setup["opt"])
     confs = [("fp32", base, False, True),
              ("BF16", dict(base, BF16=True), True, True),
@@ -2607,12 +2725,32 @@ def train_graph_equality(setup, drive, device="cuda"):
             spread = tuple(max(x) for x in zip(
                 spread, arm_diff(eager[2], eager[0]),
                 arm_diff(eager[2], eager[1])))
-            got = arm(True, "graph")
-            diff = arm_diff(got, eager[0])
+            step, state, batches = train_arm(setup, opt, True, device)
+            opt_state = state.optimizer.state_dict()
+            runs = [drive(f"13 (b) {label} graph steps",
+                          lambda: run_arm(step, state, batches),
+                          N_GRAPH_STEPS, bf16=bf16, exact=True)]
+            captures = len(step.graphs)
+            runs += [rerun_arm(setup, step, state, batches, opt_state)
+                     for _ in range(GRAPH_RUNS - 1)]
+            got = runs[0]
+            diffs = [arm_diff(r, eager[0]) for r in runs]
+            diff = tuple(statistics.median(d[i] for d in diffs)
+                         for i in range(3))
             limit = tuple(ARM_SPREAD * x for x in spread)
-            ok = all(d <= t for d, t in zip(diff, limit))
-            tol = (f"{ARM_SPREAD} x the largest spread of 3 eager arms: "
-                   + ", ".join(f"{x:.3e}" for x in limit))
+            ok = (all(d <= t for d, t in zip(diff, limit))
+                  and len(step.graphs) == captures)
+            margins = [d / t if t else math.inf * (d > 0)
+                       for d, t in zip(diff, limit)]
+            tol = (f"the median of {GRAPH_RUNS} runs of the graph arm ("
+                   + "; ".join(", ".join(f"{x:.3e}" for x in d) for d in diffs)
+                   + f"; {captures} captures, {len(step.graphs) - captures} "
+                   f"more in the reruns) within {ARM_SPREAD} x the largest "
+                   "spread of 3 eager arms: "
+                   + ", ".join(f"{x:.3e}" for x in limit)
+                   + "; margin (value / limit) "
+                   + ", ".join(f"{x:.2f}" for x in margins))
+            del step, state
         log(f"phase 13 (a): {label}: losses eager "
             f"{[round(x, 6) for x in eager[0][0]]}, graphs "
             f"{[round(x, 6) for x in got[0]]}")
@@ -2725,6 +2863,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    faulthandler.enable()  # a crash in native code prints the Python stack
     from ruart_tpu_torch.models.bert.model import BertSelfAttention
     from ruart_tpu_torch.ops import attention as att
 
@@ -2769,16 +2908,22 @@ def main() -> int:
     # -- phase 1: build + kernel against plain ------------------------------
     t0 = time.time()
     report = att.build_kernel(force=True)
-    log(f"phase 1: built {att.LIBRARY.name} in {time.time() - t0:.1f} s")
+    log(f"phase 1: built {att.LIBRARY.name} from "
+        f"{', '.join(s.name for s in att.SOURCES)} in {time.time() - t0:.1f} s")
     ptxas_report(report)
-    blocks_per_sm = att._library().ruart_attention_blocks_per_sm
-    blocks_per_sm.argtypes = [ctypes.c_int] * 5
+    lib = att._library()
     for name, (L, dh, bias_2d, flash) in (("K1", (SERVE_SHAPE[1], 64, 1, 0)),
                                           ("K2", (K2_SHAPE[1], 48, 1, 0)),
                                           ("K3", (FLASH_SHAPES[0][2], 64, 0, 1))):
         log(f"  {name} fp32 at L {L}, dh {dh}: "
-            f"{blocks_per_sm(L, dh, 0, bias_2d, flash)} blocks resident per SM")
+            f"{lib.ruart_attention_blocks_per_sm(L, dh, 0, bias_2d, flash)} "
+            f"blocks resident per SM")
+    for B, L, H, dh, bias_2d in (SERVE_SHAPE, CHUNK_SHAPE):
+        log(f"  K1 bf16 at L {L}, dh {dh}: "
+            f"{lib.ruart_attention_bf16_blocks_per_sm(L, dh, int(bias_2d))} "
+            f"blocks resident per SM")
     errs = check_kernel(att)
+    race_check(att)
     log(f"phase 1 ok: worst fp32 error K1 {errs['K1']:.3e}, K2 {errs['K2']:.3e}")
 
     # -- phase 2: serve at full width (main path 1) ---------------------------
@@ -2977,6 +3122,8 @@ def main() -> int:
         bf16_serving(params, reqs, drive)
         k1_bf16 = time_kernel(att, shape, "bfloat16")
         log_timing("K1 bf16", shape, k1_bf16)
+        log_timing("K1 bf16 (for information)", CHUNK_SHAPE,
+                   time_kernel(att, CHUNK_SHAPE, "bfloat16"))
         bf16_training(att, root, conf, drive)
         branch_forwards(reqs, root, drive)
         for label, launched, n in driven[n_phase8:]:
@@ -3061,9 +3208,9 @@ def main() -> int:
         f"phase 12 {phase12_counts}, phase 13 {phase13_counts}")
     log(f"total {time.time() - t_start:.1f} s")
     log(card)
-    source = "ruart_tpu_torch/csrc/attention.cu"
 
-    def entry(name, replaces, launches, err, timing):
+    def entry(name, replaces, launches, err, timing,
+              source="ruart_tpu_torch/csrc/attention.cu"):
         ms, plain_ms, lib_ms, bound_ms, bound_by, _ = timing
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -3075,12 +3222,13 @@ def main() -> int:
         entry("attention_rows (K1, _packed_kernel)",
               "ruart_tpu/ops/attention.py:100",
               main_path["K1"] - main_path["K1 bf16"], errs["K1"], k1),
-        # the same kernel's bf16 instantiation, on the BF16 paths of phase 9
+        # K1 on bf16 inputs, a kernel of its own: the BF16 paths
         entry("attention_rows (K1, _packed_kernel) bf16",
               "ruart_tpu/ops/attention.py:100", main_path["K1 bf16"],
-              errs["K1 bf16"], k1_bf16),
-        # K2's function runs in the same kernel; no main-path call has a
-        # head width that takes it at BERT-base (dh 64)
+              errs["K1 bf16"], k1_bf16,
+              source="ruart_tpu_torch/csrc/attention_bf16.cu"),
+        # K2's function runs in K1's kernels (timed here in fp32); no
+        # main-path call has a head width that takes it at BERT-base (dh 64)
         entry("attention_rows (K2, _grouped_kernel)",
               "ruart_tpu/ops/attention.py:54", 0, errs["K2"], k2),
         entry("flash_attention (K3, _mha_kernel)",

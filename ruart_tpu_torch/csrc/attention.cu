@@ -11,16 +11,13 @@
 // Per row b and head h it computes
 //   out[b, h] = softmax(q_h k_h^T / sqrt(dh) + bias) v_h
 // with fp32 scores, a max-subtracted fp32 softmax, fp32 probabilities and
-// fp32 accumulation, as the Pallas bodies do -- except that a bf16 output
-// (K1/K2 under BF16) takes the probabilities normalized and rounded to
-// bf16 before P V, as its plain version and the JAX package's
-// attention_rows_xla cast them to q's type (the TPU's matrix unit rounds
-// an fp32 P to bf16 at default precision, too). The kernel reads q/k/v
+// fp32 accumulation, as the Pallas bodies do. The kernel reads q/k/v
 // through element strides for batch, position and head, so one body serves
-// both layouts without a copy: the model layout [B, L, H*dh] (K1/K2, output
-// in q's type) and the head-major layout [B, H, L, D] (K3, output always
-// fp32). The bias is a [B, L] key bias or a [B, L, L] per-query (segment)
-// bias.
+// both layouts without a copy: the model layout [B, L, H*dh] (K1/K2 in
+// fp32) and the head-major layout [B, H, L, D] (K3, fp32 or bf16 inputs,
+// output always fp32). The bias is a [B, L] key bias or a [B, L, L]
+// per-query (segment) bias. K1/K2 on bf16 inputs (the BF16 encoder) run in
+// a kernel of their own on the bf16 tensor cores, attention_bf16.cu.
 //
 // What bounds it on an H100. The products run on the tensor cores in
 // 3xTF32 (below): three TF32 products per fp32 product, so at best
@@ -60,26 +57,21 @@
 //     small = cvt.rna.tf32(x - big), and a*b ~ small*big + big*small +
 //     big*big accumulated in fp32, small terms first (CUTLASS's fast-fp32
 //     scheme). That keeps ~fp32 accuracy, where a single TF32 product keeps
-//     about three digits. bf16 inputs are exact in TF32: Q K^T takes one
-//     product per fragment, and so does P V where P is rounded to bf16
-//     (bf16 output); K3's fp32 output keeps P in fp32: two products, P's
-//     big and small parts times V.
+//     about three digits. K3's bf16 inputs are exact in TF32: Q K^T takes
+//     one product per fragment; its fp32 output keeps P in fp32: two
+//     products, P's big and small parts times V.
 //   * Softmax on the accumulator fragments (online over key tiles): the
 //     C fragment holds a query row's values in one quad of 4 lanes, so the
 //     row max takes 2 shuffles and the 16 rows of a warp move together; the
-//     row sum is reduced once, in the epilogue. A bf16 output needs the
-//     normalized P before P V: the sum is reduced right after the last key
-//     tile's exponentials, and for L > 32 a first pass over the key tiles
-//     (Q K^T and the softmax statistics only) comes before the pass that
-//     computes P V -- K and V are read twice there, Q K^T is done twice.
+//     row sum is reduced once, in the epilogue.
 //   * P stays in registers: the k order of P V is permuted so that column t
 //     of the A fragment is key 2t and column t + 4 is key 2t + 1 -- the two
 //     keys the lane already holds in S's C fragment -- and V's rows are read
 //     in the same order. No shuffle, no shared-memory round trip.
 //   * Epilogue: one reciprocal of the row sum per row; lanes t and t ^ 1
 //     swap half their C fragment, so that each lane holds four neighbouring
-//     outputs of one row, and write them with 16-byte stores (8-byte for
-//     bf16) through the output layout's strides.
+//     outputs of one row, and write them with 16-byte stores through the
+//     output layout's strides.
 //   * mma.sync, not wgmma: wgmma takes 64-row tiles per warpgroup, which at
 //     L 32 would span two (row, head) pairs, and takes its TF32 B operand
 //     only K-major from shared memory, so V would need a transpose and
@@ -171,12 +163,6 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
 // Four neighbouring output values to an aligned address.
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  // round to nearest even, as torch's cast
-  __nv_bfloat162 h[2] = {__floats2bfloat162_rn(x.x, x.y),
-                         __floats2bfloat162_rn(x.z, x.w)};
-  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
 }
 
 __device__ __forceinline__ uint32_t tf32(float x) {
@@ -286,12 +272,12 @@ __device__ __forceinline__ void stage_bias(float* dst, int pitch,
 }
 
 // DP: dh padded to a multiple of 32 (zero columns past dh). T is the input
-// type, TO the output type. One block per (row b, query tile, head h).
-template <typename T, typename TO, int DP, bool kBias2d>
+// type; the output is fp32. One block per (row b, query tile, head h).
+template <typename T, int DP, bool kBias2d>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
-                     TO* __restrict__ out, Layout in, Layout o, int L, int dh,
+                     float* __restrict__ out, Layout in, Layout o, int L, int dh,
                      Plan p, bool vec, float scale) {
   constexpr bool kF32 = sizeof(T) == 4;  // else bf16: exact in TF32
   constexpr int kKP = k_pitch(DP);
@@ -366,18 +352,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-  // K1 in bf16 (bf16 output) rounds the normalized probabilities to bf16
-  // before P V, as its plain version (attention_rows_plain) and the JAX
-  // package's attention_rows_xla cast them to q's type. Normalized P needs
-  // each row's max and sum first: with more than one key tile a first pass
-  // over the tiles finds them (Q K^T only), and the second computes P V.
-  constexpr bool kRoundP = sizeof(TO) == 2;
-  const int n_pass = kRoundP && p.n_ktiles > 1 ? 2 : 1;
-  const int n_iter = n_pass * p.n_ktiles;
+  const int n_iter = p.n_ktiles;
   for (int it = 0; it < n_iter; ++it) {
     const int kt = it % p.n_ktiles;
-    const bool stats = n_pass == 2 && it < p.n_ktiles;  // max and sum only
-    const bool fixed = n_pass == 2 && !stats;           // max and sum known
     if (it + 1 < n_iter) {  // prefetch the next key tile
       issue((it + 1) % p.n_ktiles, (it + 1) & 1);
       cp_async_wait<1>();
@@ -447,91 +424,66 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
         mx[i] = fmaxf(mx[i], fmaxf(s[j][2 * i], s[j][2 * i + 1]));
       }
     float corr[2] = {1.f, 1.f};
-    if (!fixed) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
-        // key tile 0 holds key 0 < L, so the max is finite from here on
-        const float m_new = fmaxf(m[i], mx[i]);
-        corr[i] = expf(m[i] - m_new);
-        m[i] = m_new;
-        l[i] *= corr[i];
-      }
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
+      // key tile 0 holds key 0 < L, so the max is finite from here on
+      const float m_new = fmaxf(m[i], mx[i]);
+      corr[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= corr[i];
     }
 #pragma unroll
     for (int j = 0; j < kNT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         s[j][e] = 8 * j < nk ? expf(s[j][e] - m[e >> 1]) : 0.f;
-        if (!fixed) l[e >> 1] += s[j][e];
+        l[e >> 1] += s[j][e];
       }
-    if (kRoundP && it == p.n_ktiles - 1) {  // the rows' sums are complete
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        l[i] += __shfl_xor_sync(kFull, l[i], 1);
-        l[i] += __shfl_xor_sync(kFull, l[i], 2);
-      }
-    }
-    if (!kRoundP) {
+    for (int n = 0; n < kD8; ++n)
 #pragma unroll
-      for (int n = 0; n < kD8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
-    }
+      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
 
     // O += P V. The k order is permuted so that column t of the A fragment
     // is key 2t and column t + 4 key 2t + 1 -- the two keys the lane holds
     // in S's C fragment -- and V's rows are read in the same order.
-    if (!stats) {
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        if (8 * j < nk) {
-          const float pa[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
-          uint32_t pb[4], ps[4];
+    for (int j = 0; j < kNT; ++j) {
+      if (8 * j < nk) {
+        const float pa[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+        uint32_t pb[4], ps[4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            if (kRoundP) {  // rows g, g + 8, g, g + 8; exact in TF32
-              pb[e] = tf32(__bfloat162float(
-                  __float2bfloat16_rn(pa[e] / l[e & 1])));
-              ps[e] = 0u;
-            } else {
-              split(pa[e], pb[e], ps[e]);
-            }
-          }
-          const T* vr = vst + (8 * j + 2 * t) * kVP + g;
+        for (int e = 0; e < 4; ++e) split(pa[e], pb[e], ps[e]);
+        const T* vr = vst + (8 * j + 2 * t) * kVP + g;
 #pragma unroll
-          for (int n = 0; n < kD8; ++n) {
-            uint32_t vb[2], vs[2];
-            split(to_f32(vr[8 * n]), vb[0], vs[0]);
-            split(to_f32(vr[kVP + 8 * n]), vb[1], vs[1]);
-            // unrounded P is fp32 in either case: its small part counts
-            if (!kRoundP) mma(acc[n], ps, vb);
-            if (kF32) mma(acc[n], pb, vs);
-            mma(acc[n], pb, vb);
-          }
+        for (int n = 0; n < kD8; ++n) {
+          uint32_t vb[2], vs[2];
+          split(to_f32(vr[8 * n]), vb[0], vs[0]);
+          split(to_f32(vr[kVP + 8 * n]), vb[1], vs[1]);
+          // P is fp32 whatever the input type: its small part counts
+          mma(acc[n], ps, vb);
+          if (kF32) mma(acc[n], pb, vs);
+          mma(acc[n], pb, vb);
         }
       }
     }
     if (it + 1 < n_iter) __syncthreads();  // consumed before refilled
   }
 
-  // epilogue: the row sums (P came normalized when rounded), then 16-byte
-  // stores straight from registers: lanes t and t ^ 1 swap halves so that
-  // an even lane holds four neighbouring values of row g and an odd lane
-  // four of row g + 8
-  if (!kRoundP) {
+  // epilogue: the row sums, then 16-byte stores straight from registers:
+  // lanes t and t ^ 1 swap halves so that an even lane holds four
+  // neighbouring values of row g and an odd lane four of row g + 8
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[i] += __shfl_xor_sync(kFull, l[i], 1);
-      l[i] += __shfl_xor_sync(kFull, l[i], 2);
-    }
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(kFull, l[i], 1);
+    l[i] += __shfl_xor_sync(kFull, l[i], 2);
   }
-  const float inv[2] = {kRoundP ? 1.f : 1.f / l[0],
-                        kRoundP ? 1.f : 1.f / l[1]};
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
   const bool odd = t & 1;
   const int pos = row0 + g + (odd ? 8 : 0);
-  TO* orow = out + (long long)b * o.batch + (long long)h * o.head +
+  float* orow = out + (long long)b * o.batch + (long long)h * o.head +
              pos * o.pos + 4 * (t >> 1);
 #pragma unroll
   for (int n = 0; n < kD8; ++n) {
@@ -545,15 +497,15 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   }
 }
 
-template <typename T, typename TO>
-using Kernel = void (*)(const T*, const T*, const T*, const float*, TO*,
+template <typename T>
+using Kernel = void (*)(const T*, const T*, const T*, const float*, float*,
                         Layout, Layout, int, int, Plan, bool, float);
 
 // One kernel of the family, with its shared-memory limit raised once to
 // what L 512 needs.
-template <typename T, typename TO, int DP, bool kBias2d>
+template <typename T, int DP, bool kBias2d>
 struct Family {
-  static Kernel<T, TO> kernel() { return attention_kernel<T, TO, DP, kBias2d>; }
+  static Kernel<T> kernel() { return attention_kernel<T, DP, kBias2d>; }
 
   static int prepare() {
     static int err = -1;
@@ -576,10 +528,10 @@ struct Family {
     const unsigned z = (unsigned)((rows + y - 1) / y);
     const int err = prepare();
     if (err != 0) return err;
-    const Kernel<T, TO> fn = kernel();
+    const Kernel<T> fn = kernel();
     fn<<<dim3((unsigned)H, y, z), p.warps * 32, p.smem,
          stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                   static_cast<const T*>(v), bias, static_cast<TO*>(out), in,
+                   static_cast<const T*>(v), bias, static_cast<float*>(out), in,
                    o, L, dh, p, vec, scale);
     return (int)cudaGetLastError();
   }
@@ -596,14 +548,14 @@ struct Family {
   }
 };
 
-template <typename T, typename TO, int DP>
+template <typename T, int DP>
 int launch_dp(const void* q, const void* k, const void* v, const float* bias,
               void* out, int B, int H, int L, int dh, int bias_2d, Layout in,
               Layout o, bool vec, float scale, cudaStream_t stream) {
   if (bias_2d)
-    return Family<T, TO, DP, true>::launch(q, k, v, bias, out, B, H, L, dh,
+    return Family<T, DP, true>::launch(q, k, v, bias, out, B, H, L, dh,
                                            in, o, vec, scale, stream);
-  return Family<T, TO, DP, false>::launch(q, k, v, bias, out, B, H, L, dh, in,
+  return Family<T, DP, false>::launch(q, k, v, bias, out, B, H, L, dh, in,
                                           o, vec, scale, stream);
 }
 
@@ -611,7 +563,7 @@ bool aligned16(const void* ptr) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
-template <typename T, typename TO>
+template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            void* out, int B, int H, int L, int dh, int bias_2d, Layout in,
            Layout o, float scale, void* stream) {
@@ -627,56 +579,52 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   const float* bias_f = static_cast<const float*>(bias);
   switch ((dh + 31) / 32) {
     case 1:
-      return launch_dp<T, TO, 32>(q, k, v, bias_f, out, B, H, L, dh, bias_2d,
+      return launch_dp<T, 32>(q, k, v, bias_f, out, B, H, L, dh, bias_2d,
                                   in, o, vec, scale, s);
     case 2:
-      return launch_dp<T, TO, 64>(q, k, v, bias_f, out, B, H, L, dh, bias_2d,
+      return launch_dp<T, 64>(q, k, v, bias_f, out, B, H, L, dh, bias_2d,
                                   in, o, vec, scale, s);
     case 3:
-      return launch_dp<T, TO, 96>(q, k, v, bias_f, out, B, H, L, dh, bias_2d,
+      return launch_dp<T, 96>(q, k, v, bias_f, out, B, H, L, dh, bias_2d,
                                   in, o, vec, scale, s);
     default:
-      return launch_dp<T, TO, 128>(q, k, v, bias_f, out, B, H, L, dh,
+      return launch_dp<T, 128>(q, k, v, bias_f, out, B, H, L, dh,
                                    bias_2d, in, o, vec, scale, s);
   }
 }
 
-template <typename T, typename TO>
+template <typename T>
 int resident(int L, int dh, int bias_2d) {
   switch ((dh + 31) / 32) {
     case 1:
-      return bias_2d ? Family<T, TO, 32, true>::resident(L)
-                     : Family<T, TO, 32, false>::resident(L);
+      return bias_2d ? Family<T, 32, true>::resident(L)
+                     : Family<T, 32, false>::resident(L);
     case 2:
-      return bias_2d ? Family<T, TO, 64, true>::resident(L)
-                     : Family<T, TO, 64, false>::resident(L);
+      return bias_2d ? Family<T, 64, true>::resident(L)
+                     : Family<T, 64, false>::resident(L);
     case 3:
-      return bias_2d ? Family<T, TO, 96, true>::resident(L)
-                     : Family<T, TO, 96, false>::resident(L);
+      return bias_2d ? Family<T, 96, true>::resident(L)
+                     : Family<T, 96, false>::resident(L);
     default:
-      return bias_2d ? Family<T, TO, 128, true>::resident(L)
-                     : Family<T, TO, 128, false>::resident(L);
+      return bias_2d ? Family<T, 128, true>::resident(L)
+                     : Family<T, 128, false>::resident(L);
   }
 }
 
 }  // namespace
 
-// K1/K2. q, k, v, out: [B, L, H*dh] contiguous, fp32 (bf16 == 0) or bf16
-// (bf16 == 1), out in q's type; bias: fp32 [B, L] (bias_2d == 0) or
-// [B, L, L] (bias_2d == 1). The caller checks shapes, types and 1 <= L,
-// dh % 8 == 0, dh <= 128. Launches on `stream` and returns
-// cudaGetLastError().
+// K1/K2 in fp32. q, k, v, out: [B, L, H*dh] contiguous fp32; bias: fp32
+// [B, L] (bias_2d == 0) or [B, L, L] (bias_2d == 1). The caller checks
+// shapes, types and 1 <= L, dh % 8 == 0, dh <= 128. Launches on `stream`
+// and returns cudaGetLastError(). bf16 inputs go to
+// ruart_attention_bf16_rows (attention_bf16.cu).
 extern "C" int ruart_attention_rows(const void* q, const void* k,
                                     const void* v, const void* bias, void* out,
                                     int B, int L, int H, int dh, int bias_2d,
-                                    int bf16, float scale, void* stream) {
+                                    float scale, void* stream) {
   const long long pitch = (long long)H * dh;
   const Layout rows{(long long)L * pitch, pitch, (long long)dh};
-  if (bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, bias, out, B, H, L,
-                                                dh, bias_2d, rows, rows, scale,
-                                                stream);
-  return launch<float, float>(q, k, v, bias, out, B, H, L, dh, bias_2d, rows,
+  return launch<float>(q, k, v, bias, out, B, H, L, dh, bias_2d, rows,
                               rows, scale, stream);
 }
 
@@ -694,19 +642,21 @@ extern "C" int ruart_flash_attention(const void* q, const void* k,
   const Layout in{stride_b, stride_l, stride_h};
   const Layout o{(long long)H * L * D, (long long)D, (long long)L * D};
   if (bf16)
-    return launch<__nv_bfloat16, float>(q, k, v, bias, out, B, H, L, D, 0, in,
+    return launch<__nv_bfloat16>(q, k, v, bias, out, B, H, L, D, 0, in,
                                         o, scale, stream);
-  return launch<float, float>(q, k, v, bias, out, B, H, L, D, 0, in, o, scale,
+  return launch<float>(q, k, v, bias, out, B, H, L, D, 0, in, o, scale,
                               stream);
 }
 
 // Blocks of the kernel that one SM keeps resident for a launch at length L
-// and head width dh (flash == 1: the K3 entry's types), or 0 on an error.
-// A measurement aid; the entries above do not use it.
+// and head width dh (flash == 1: the K3 entry's types, fp32 or bf16 inputs;
+// flash == 0: K1/K2 in fp32; attention_bf16.cu answers for K1/K2 in bf16),
+// or 0 on an error or for bf16 == 1 with flash == 0. A measurement aid; the
+// entries above do not use it.
 extern "C" int ruart_attention_blocks_per_sm(int L, int dh, int bf16,
                                              int bias_2d, int flash) {
   if (L <= 0 || L > kMaxLen || dh <= 0 || dh > 128 || dh % 8 != 0) return 0;
-  if (bf16 && flash) return resident<__nv_bfloat16, float>(L, dh, bias_2d);
-  if (bf16) return resident<__nv_bfloat16, __nv_bfloat16>(L, dh, bias_2d);
-  return resident<float, float>(L, dh, bias_2d);
+  if (bf16 && flash) return resident<__nv_bfloat16>(L, dh, bias_2d);
+  if (bf16) return 0;
+  return resident<float>(L, dh, bias_2d);
 }

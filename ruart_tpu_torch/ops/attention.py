@@ -2,25 +2,35 @@
 
 Port of the TPU kernels of ``ruart_tpu/ops/attention.py``: ``_packed_kernel``
 and ``_grouped_kernel`` (reached through ``grouped_attention``) and
-``_mha_kernel`` (reached through ``flash_attention``). One CUDA C++ kernel
-for sm_90a, ``csrc/attention.cu``, serves all three: it reads its inputs
-through element strides, so the model layout and the head-major layout take
-the same code without a copy. The source also states what bounds it on an
-H100 and how its design answers that. The kernel is compiled with ``nvcc``
-at first use into ``ruart_tpu_torch/_build/`` and loaded with ``ctypes``
+``_mha_kernel`` (reached through ``flash_attention``). Two CUDA C++ sources
+for sm_90a hold the kernels, by input type:
+
+* ``csrc/attention.cu`` -- K1/K2 on fp32 inputs and K3 (fp32 or bf16
+  inputs, fp32 output): products in 3xTF32 on the tensor cores. It reads
+  its inputs through element strides, so the model layout and the
+  head-major layout take the same code without a copy.
+* ``csrc/attention_bf16.cu`` -- K1/K2 on bf16 inputs (the ``BF16``
+  encoder): products on the bf16 tensor cores (``mma.sync.m16n8k16``),
+  one block per (row, head, query tile).
+
+Each source states what bounds its kernel on an H100 and how its design
+answers that. Both are compiled with ``nvcc`` at first use, in parallel,
+into one library in ``ruart_tpu_torch/_build/`` and loaded with ``ctypes``
 (a plain C interface; no PyTorch headers, so the build takes seconds).
 
 Model layout (K1/K2): q/k/v are [B, L, H*dh]; ``bias`` is a float32 [B, L]
 additive key bias or a [B, L, L] per-query bias (the packed segment mask).
-The output is [B, L, H*dh] in q's dtype (fp32 or bf16; fp32 scores,
-softmax and sums).
+The output is [B, L, H*dh] in q's dtype (fp32 or bf16; fp32 scores and
+softmax, fp32 sums; in bf16 the normalized probabilities are rounded to
+bf16 before P V, as the plain version casts them).
 
 * :func:`attention_rows_plain` — the plain PyTorch version, the
   counterpart of ``attention_rows_xla``. The only path for CPU tensors.
 * :func:`attention_rows_cuda` — checks its inputs and launches the kernel
-  on the current stream; counts its launches in
+  of their dtype on the current stream; counts its launches in
   ``attention_rows_cuda.launches``, and those on bf16 inputs (the ``BF16``
-  encoder) also in ``attention_rows_cuda.bf16_launches``.
+  encoder, ``attention_bf16.cu``) also in
+  ``attention_rows_cuda.bf16_launches``. A failed build or launch raises.
 * :func:`attention_rows` — dispatch on the tensors' device: CPU tensors
   take the plain version, CUDA tensors the kernel. No fallback.
 * :func:`fused_attention` — :func:`attention_rows` under autograd, the
@@ -61,9 +71,11 @@ import tempfile
 import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "attention.cu"
+SOURCES = (_PKG / "csrc" / "attention.cu", _PKG / "csrc" / "attention_bf16.cu")
 BUILD_DIR = _PKG / "_build"
 LIBRARY = BUILD_DIR / "libruart_attention.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
 MAX_LEN = 512
 MAX_HEAD_DIM = 128
 
@@ -99,34 +111,65 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+def stale() -> bool:
+    """True when :data:`LIBRARY` is missing or older than any of
+    :data:`SOURCES`."""
+    return not LIBRARY.exists() or LIBRARY.stat().st_mtime < max(
+        src.stat().st_mtime for src in SOURCES)
+
+
+def _run(cmds):
+    """Start the commands together; returns (returncode, output) of each."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    results = []
+    for proc in procs:
+        out = proc.communicate()[0]
+        results.append((proc.returncode, out))
+    return results
+
+
 def build_kernel(force: bool = False) -> str:
-    """Compile ``csrc/attention.cu`` for sm_90a into :data:`LIBRARY` unless
-    an up-to-date build exists. Returns the compiler's report (registers,
-    shared memory and spills per kernel from ``-Xptxas -v``), or "" when
-    the existing build was kept. Raises RuntimeError when nvcc fails."""
-    if (
-        not force
-        and LIBRARY.exists()
-        and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime
-    ):
+    """Compile :data:`SOURCES` for sm_90a, one nvcc per source started
+    together, and link them into :data:`LIBRARY` unless it is up to date
+    (:func:`stale`). Returns the compiler's report (registers, shared memory
+    and spills per kernel from ``-Xptxas -v``), or "" when the existing
+    build was kept. Raises RuntimeError, naming the source, when nvcc
+    fails."""
+    if not force and not stale():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", tmp, str(SOURCE),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, LIBRARY)
-    return proc.stdout + proc.stderr
+    temps = []
+
+    def temp(suffix):
+        fd, path = tempfile.mkstemp(suffix=suffix, dir=BUILD_DIR)
+        os.close(fd)
+        temps.append(path)
+        return path
+
+    try:
+        objects = [temp(".o") for _ in SOURCES]
+        compiles = [[_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj,
+                     str(src)] for obj, src in zip(objects, SOURCES)]
+        library = temp(".so")
+        link = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", library, *objects]
+        reports = []
+        for cmd, (rc, out) in zip(compiles, _run(compiles)):
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}) on {cmd[-1]}: "
+                                   f"{' '.join(cmd)}\n{out}")
+            reports.append(out)
+        [(rc, out)] = _run([link])
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}) linking {LIBRARY.name}: "
+                               f"{' '.join(link)}\n{out}")
+        os.replace(library, LIBRARY)
+    finally:
+        for path in temps:
+            if os.path.exists(path):
+                os.unlink(path)
+    return "".join(reports)
 
 
 @functools.lru_cache(maxsize=1)
@@ -134,13 +177,24 @@ def _library() -> ctypes.CDLL:
     build_kernel()
     lib = ctypes.CDLL(str(LIBRARY))
     fn = lib.ruart_attention_rows
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.ruart_attention_bf16_rows
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     fn = lib.ruart_flash_attention
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
         ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.ruart_attention_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    fn = lib.ruart_attention_bf16_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_int
     return lib
 
@@ -191,17 +245,21 @@ def attention_rows_cuda(
     if B == 0:
         return out
     lib = _library()
+    bf16 = q.dtype == torch.bfloat16
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), B, L, heads, dh, int(bias.dim() == 3))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.ruart_attention_rows(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), B, L, heads, dh, int(bias.dim() == 3),
-            int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(dh), stream,
-        )
+        if bf16:
+            err = lib.ruart_attention_bf16_rows(*args, 1.0 / math.sqrt(dh),
+                                                stream)
+        else:
+            err = lib.ruart_attention_rows(*args, 1.0 / math.sqrt(dh), stream)
     if err != 0:
-        raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
+        name = "bf16 attention kernel" if bf16 else "attention kernel"
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     attention_rows_cuda.launches += 1
-    if q.dtype == torch.bfloat16:
+    if bf16:
         attention_rows_cuda.bf16_launches += 1
     return out
 

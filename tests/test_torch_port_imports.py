@@ -54,6 +54,7 @@ def test_scan_sees_the_package():
         assert name in names
     native = {p.relative_to(REPO).as_posix() for p in NATIVE}
     assert native == {"ruart_tpu_torch/csrc/attention.cu",
+                      "ruart_tpu_torch/csrc/attention_bf16.cu",
                       "ruart_tpu_torch/native/phoc.cc",
                       "ruart_tpu_torch/native/fastcollate.cc"}
 
