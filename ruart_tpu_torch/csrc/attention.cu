@@ -89,6 +89,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kRowsPerWarp = 16;  // m of mma.m16n8k8
@@ -548,13 +550,20 @@ struct Family {
   }
 };
 
+// The segment bias comes only with fp32 inputs (K1/K2): bf16 inputs here
+// are K3's, whose bias is a key bias, so no bf16 kernel takes a [B, L, L]
+// bias and none is built.
 template <typename T, int DP>
 int launch_dp(const void* q, const void* k, const void* v, const float* bias,
               void* out, int B, int H, int L, int dh, int bias_2d, Layout in,
               Layout o, bool vec, float scale, cudaStream_t stream) {
-  if (bias_2d)
-    return Family<T, DP, true>::launch(q, k, v, bias, out, B, H, L, dh,
-                                           in, o, vec, scale, stream);
+  if constexpr (std::is_same<T, float>::value) {
+    if (bias_2d)
+      return Family<T, DP, true>::launch(q, k, v, bias, out, B, H, L, dh,
+                                         in, o, vec, scale, stream);
+  } else if (bias_2d) {
+    return (int)cudaErrorInvalidValue;
+  }
   return Family<T, DP, false>::launch(q, k, v, bias, out, B, H, L, dh, in,
                                           o, vec, scale, stream);
 }
@@ -593,21 +602,27 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   }
 }
 
+template <typename T, int DP>
+int resident_dp(int L, int bias_2d) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (bias_2d) return Family<T, DP, true>::resident(L);
+  } else if (bias_2d) {
+    return 0;
+  }
+  return Family<T, DP, false>::resident(L);
+}
+
 template <typename T>
 int resident(int L, int dh, int bias_2d) {
   switch ((dh + 31) / 32) {
     case 1:
-      return bias_2d ? Family<T, 32, true>::resident(L)
-                     : Family<T, 32, false>::resident(L);
+      return resident_dp<T, 32>(L, bias_2d);
     case 2:
-      return bias_2d ? Family<T, 64, true>::resident(L)
-                     : Family<T, 64, false>::resident(L);
+      return resident_dp<T, 64>(L, bias_2d);
     case 3:
-      return bias_2d ? Family<T, 96, true>::resident(L)
-                     : Family<T, 96, false>::resident(L);
+      return resident_dp<T, 96>(L, bias_2d);
     default:
-      return bias_2d ? Family<T, 128, true>::resident(L)
-                     : Family<T, 128, false>::resident(L);
+      return resident_dp<T, 128>(L, bias_2d);
   }
 }
 

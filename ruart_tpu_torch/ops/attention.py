@@ -235,13 +235,25 @@ def _check(q, k, v, bias, heads):
     return B, L, dh
 
 
+def _check_out(out, shape, dtype, device, name):
+    if out is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    if (tuple(out.shape) != tuple(shape) or out.dtype != dtype
+            or out.device != device or not out.is_contiguous()):
+        raise ValueError(f"{name}: out must be a contiguous {dtype} "
+                         f"{tuple(shape)} on {device}")
+    return out
+
+
 def attention_rows_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-    heads: int,
+    heads: int, out: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Launch the hand-written kernel on CUDA tensors (see module doc)."""
+    """Launch the hand-written kernel on CUDA tensors (see module doc);
+    ``out`` (contiguous, q's shape and dtype) receives the result instead
+    of a new tensor."""
     B, L, dh = _check(q, k, v, bias, heads)
-    out = torch.empty_like(q)
+    out = _check_out(out, q.shape, q.dtype, q.device, "attention_rows_cuda")
     if B == 0:
         return out
     lib = _library()
@@ -361,12 +373,14 @@ def _check_flash(q, k, v, bias):
 
 def flash_attention_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch the kernel on head-major CUDA tensors: q/k/v [B, H, L, D]
     (any batch/head/position strides they share), ``bias`` [B, 1, 1, L];
-    returns a contiguous fp32 [B, H, L, D]."""
+    returns a contiguous fp32 [B, H, L, D] (``out``, when given)."""
     B, H, L, D = _check_flash(q, k, v, bias)
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    out = _check_out(out, q.shape, torch.float32, q.device,
+                     "flash_attention_cuda")
     if B == 0 or H == 0:
         return out
     bias = bias.reshape(B, L).contiguous()

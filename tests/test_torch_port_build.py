@@ -114,3 +114,26 @@ def test_failed_compile_raises_naming_the_source(fake_build, monkeypatch):
     with pytest.raises(RuntimeError, match="attention_bf16.cu"):
         att.build_kernel()
     assert not att.LIBRARY.exists() and os.listdir(att.BUILD_DIR) == []
+
+
+def _project():
+    with open(REPO / "pyproject.toml", "rb") as f:
+        return tomllib.load(f)["project"]
+
+
+@pytest.mark.parametrize("script", ["ruart-torch-train", "ruart-torch-predict"])
+def test_port_script_target_imports_and_is_callable(script):
+    """The port's install entry points name a callable of the port, beside
+    the JAX package's two scripts."""
+    import importlib
+
+    scripts = _project()["scripts"]
+    module, attr = scripts[script].split(":")
+    assert module.startswith("ruart_tpu_torch.cli.")
+    assert callable(getattr(importlib.import_module(module), attr))
+    assert scripts["ruart-train"] == "ruart_tpu.cli.main:main"
+    assert scripts["ruart-predict"] == "ruart_tpu.cli.main_test:main"
+
+
+def test_torch_extra_names_torch():
+    assert "torch" in _project()["optional-dependencies"]["torch"]

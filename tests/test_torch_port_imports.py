@@ -12,9 +12,11 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ruart_tpu")
+TOOLS = [REPO / "tools" / name for name in (
+    "torch_kernel_sanitize.py", "torch_train_graph_crash.py")]
 SOURCES = sorted((REPO / "ruart_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"
-]
+] + TOOLS
 NATIVE = sorted(p for ext in ("*.cc", "*.cu")
                 for p in (REPO / "ruart_tpu_torch").rglob(ext))
 JAX_PACKAGE = re.compile(r"\bruart_tpu\b(?!_torch)")
@@ -81,3 +83,4 @@ def test_native_sources_are_the_ports_own(path):
     assert not bad, f"{path.relative_to(REPO)} names the JAX package: {bad}"
     # the CPython extension's module name differs from the JAX package's
     assert "_ruart_fastcollate" not in text.replace("_ruart_torch_fastcollate", "")
+
