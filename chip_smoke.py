@@ -232,11 +232,14 @@ non-zero when there is none, or when any phase fails:
    raises, naming the signature. (f) Between (a) and (c): three more
    LOCK_BERT-off graph arms, each built, run for its 10 steps (K1 12 per
    step) and dropped, so that (c) replays the kept graph arm under the
-   profiler after other train graphs of the process were torn down. The
-   smoke sets ``KEEP_CUPTI`` (CUPTI not torn down between profiler
-   sessions); with PyTorch's default this input segfaulted in 1 of 5
-   runs, an open fault (ROADMAP Queue 3). ``--cupti-default`` leaves
-   CUPTI at PyTorch's default: the setup that crashed.
+   profiler after other train graphs of the process were torn down.
+   While the dropped steps' graphs waited for Python's cyclic collector,
+   a collection between (c)'s profiler sessions freed them, and the next
+   profiled replay segfaulted inside CUPTI's callback on
+   ``cuGraphLaunch`` (PERF.md, section 6); the port's graphs now go when
+   their owner does. The smoke leaves CUPTI at PyTorch's settings;
+   ``--cupti-default`` also clears ``TEARDOWN_CUPTI`` and
+   ``DISABLE_CUPTI_LAZY_REINIT`` from the environment first.
 
 Checks whose pass depends on chance (a timing, a profiler count, the
 spread of runs that add with atomics) print their margin, the value over
@@ -1243,7 +1246,9 @@ def profile_device(fn, label: str):
 
 def run_training(att, conf: str):
     """Phase 6, train half: the CLI's entry point on ``conf``. Every train
-    step is wrapped to record its K1 launches and its (device) loss."""
+    step is wrapped to record its K1 launches and its (device) loss, and
+    the cost of its CUDA graphs (``train_graph_cost``) is read when the
+    trainer releases them at the end of training (``recorded.cost``)."""
     import ruart_tpu_torch.train.trainer as trainer_mod
     from ruart_tpu_torch.cli import main as cli_main
 
@@ -1261,7 +1266,14 @@ def run_training(att, conf: str):
                           k1.bf16_launches - before[1], loss))
             return state, loss
 
-        recorded.step = step  # its graphs: step.graphs
+        cost = {}
+
+        def release():  # refers to no wrapper: no cycle keeps the trainer
+            if step.graphs is not None and not cost:
+                cost.update(train_graph_cost(step))
+            step.release()
+
+        recorded.step, recorded.release, recorded.cost = step, release, cost
         return recorded
 
     trainer_mod.make_train_step = recording_factory
@@ -2911,24 +2923,17 @@ def train_graph_equality(setup, drive, device="cuda"):
 
 
 N_DROPPED_ARMS = 3  # phase 13 (f)
-# CUPTI is how torch.profiler traces the card. The smoke sets the two
-# variables torch.profiler sets itself for torch.compile's CUDA graphs
-# before CUDA 12.6 ("CUDA Graph does not work well with CUPTI teardown"):
-# CUPTI is not torn down after a profiler session nor set up again lazily.
-# With neither variable set (PyTorch's default), 13 (c)'s first profiled
-# replay after 13 (f) segfaulted in 1 of 5 runs; with these it has not (0
-# of 12), too few runs to show that they remove the fault (ROADMAP Queue
-# 3, open).
-KEEP_CUPTI = {"TEARDOWN_CUPTI": "0", "DISABLE_CUPTI_LAZY_REINIT": "1"}
+CUPTI_VARIABLES = ("TEARDOWN_CUPTI", "DISABLE_CUPTI_LAZY_REINIT")
 
 
 def dropped_graph_arms(setup, drive, device="cuda"):
     """Phase 13 (f), run between (a) and (c): N_DROPPED_ARMS LOCK_BERT-off
     train steps built with ``make_train_step(graphs=True)``, each run for
-    its N_GRAPH_STEPS steps (K1 12 per step, replay-aware) and dropped.
-    Then (c) replays the kept fp32 graph arm under the profiler: the input
-    under which such a replay segfaulted without KEEP_CUPTI (ROADMAP
-    Queue 3)."""
+    its N_GRAPH_STEPS steps (K1 12 per step, replay-aware) and dropped
+    (their graphs freed at the ``del``). Then (c) replays the kept fp32
+    graph arm under the profiler: the input under which such a replay
+    segfaulted inside CUPTI while the dropped arms' graphs were left to
+    the cyclic collector (ROADMAP Queue 3)."""
     opt = {k: v for k, v in setup["opt"].items() if k != "LOCK_BERT"}
     t0 = time.time()
     captures = []
@@ -2942,7 +2947,7 @@ def dropped_graph_arms(setup, drive, device="cuda"):
     log(f"phase 13 (f): {N_DROPPED_ARMS} LOCK_BERT-off graph arms built, run "
         f"for {N_GRAPH_STEPS} steps each and dropped before (c): captures "
         f"{captures}, {time.time() - t0:.1f} s; CUPTI "
-        + ", ".join(f"{k}={os.environ.get(k)}" for k in KEEP_CUPTI))
+        + ", ".join(f"{k}={os.environ.get(k)}" for k in CUPTI_VARIABLES))
 
 
 def train_graph_timing(arms, setup):
@@ -3047,8 +3052,22 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     faulthandler.enable()  # a crash in native code prints the Python stack
-    if not sys.argv[1:]:
-        os.environ.update(KEEP_CUPTI)  # before the first profiler session
+    if sys.argv[1:]:  # --cupti-default: neither variable set, whatever
+        for name in CUPTI_VARIABLES:  # the environment holds
+            os.environ.pop(name, None)
+    return run()
+
+
+def run(phase13=None, skip=()) -> int:
+    """Phases 1-13 in order, then the kernels line and the last line.
+
+    ``phase13(graph_setup, drive)``, when given, runs in place of phase 13
+    and the report (``tools/torch_train_graph_crash.py --form smoke``),
+    with ``skip`` naming phases of 1, 4, 5, 7, 8, 9, 10, 11 and 12 left
+    out; phases 2, 3 and 6 make what the later ones take, and phase 11
+    reads files phase 9 writes."""
+    import torch
+
     from ruart_tpu_torch.models.bert.model import BertSelfAttention
     from ruart_tpu_torch.ops import attention as att
 
@@ -3091,26 +3110,27 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda})")
 
     # -- phase 1: build + kernel against plain ------------------------------
-    t0 = time.time()
-    report = att.build_kernel(force=True)
-    log(f"phase 1: built {att.LIBRARY.name} from "
-        f"{', '.join(s.name for s in att.SOURCES)} in {time.time() - t0:.1f} s")
-    ptxas_report(report)
-    lib = att._library()
-    for name, (L, dh, bias_2d, flash) in (("K1", (SERVE_SHAPE[1], 64, 1, 0)),
-                                          ("K2", (K2_SHAPE[1], 48, 1, 0)),
-                                          ("K3", (FLASH_SHAPES[0][2], 64, 0, 1))):
-        log(f"  {name} fp32 at L {L}, dh {dh}: "
-            f"{lib.ruart_attention_blocks_per_sm(L, dh, 0, bias_2d, flash)} "
-            f"blocks resident per SM")
-    for B, L, H, dh, bias_2d in (SERVE_SHAPE, CHUNK_SHAPE):
-        log(f"  K1 bf16 at L {L}, dh {dh}: "
-            f"{lib.ruart_attention_bf16_blocks_per_sm(L, dh, int(bias_2d))} "
-            f"blocks resident per SM")
-    errs = check_kernel(att)
-    race_check(att)
-    sanitize(report)
-    log(f"phase 1 ok: worst fp32 error K1 {errs['K1']:.3e}, K2 {errs['K2']:.3e}")
+    if 1 not in skip:
+        t0 = time.time()
+        report = att.build_kernel(force=True)
+        log(f"phase 1: built {att.LIBRARY.name} from "
+            f"{', '.join(s.name for s in att.SOURCES)} in {time.time() - t0:.1f} s")
+        ptxas_report(report)
+        lib = att._library()
+        for name, (L, dh, bias_2d, flash) in (("K1", (SERVE_SHAPE[1], 64, 1, 0)),
+                                              ("K2", (K2_SHAPE[1], 48, 1, 0)),
+                                              ("K3", (FLASH_SHAPES[0][2], 64, 0, 1))):
+            log(f"  {name} fp32 at L {L}, dh {dh}: "
+                f"{lib.ruart_attention_blocks_per_sm(L, dh, 0, bias_2d, flash)} "
+                f"blocks resident per SM")
+        for B, L, H, dh, bias_2d in (SERVE_SHAPE, CHUNK_SHAPE):
+            log(f"  K1 bf16 at L {L}, dh {dh}: "
+                f"{lib.ruart_attention_bf16_blocks_per_sm(L, dh, int(bias_2d))} "
+                f"blocks resident per SM")
+        errs = check_kernel(att)
+        race_check(att)
+        sanitize(report)
+        log(f"phase 1 ok: worst fp32 error K1 {errs['K1']:.3e}, K2 {errs['K2']:.3e}")
 
     # -- phase 2: serve at full width (main path 1) ---------------------------
     t0 = time.time()
@@ -3178,13 +3198,15 @@ def main() -> int:
     del engine, plain
 
     # -- phase 4: K3 against its plain version --------------------------------
-    k3_err = check_flash(att)
-    k3 = time_flash(att)
-    log_timing("K3", FLASH_SHAPES[0], k3)
-    log(f"phase 4 ok: K3 worst fp32 error {k3_err:.3e}")
+    if 4 not in skip:
+        k3_err = check_flash(att)
+        k3 = time_flash(att)
+        log_timing("K3", FLASH_SHAPES[0], k3)
+        log(f"phase 4 ok: K3 worst fp32 error {k3_err:.3e}")
 
     # -- phase 5: K1's autograd.Function -------------------------------------
-    check_autograd(att)
+    if 5 not in skip:
+        check_autograd(att)
 
     # -- phase 6: train and predict through the CLIs (main paths 2 and 3) -----
     # the run's data and run folders live in the checkout's ignored scratch
@@ -3220,7 +3242,10 @@ def main() -> int:
                 raise AssertionError(f"the run folder lacks {name}")
         steps_per_s = trainer.updates / trainer.train_seconds
         peak_train = torch.cuda.max_memory_allocated()
-        train_cost = train_graph_cost(trainer.train_step.step)
+        # read at the trainer's release; now for a port whose trainer does
+        # not release (torch_train_graph_crash.py --root)
+        train_cost = (trainer.train_step.cost
+                      or train_graph_cost(trainer.train_step.step))
         log(f"phase 6: the train step on CUDA graphs: {train_cost['captures']} "
             f"captures in {len(steps)} steps, seconds per capture "
             f"{[round(x, 4) for x in train_cost['seconds']]}, graph pool "
@@ -3247,7 +3272,8 @@ def main() -> int:
             "batches": train_batches_on_device(trainer, N_GRAPH_BATCHES)}
 
         # -- phase 7: one step with the kernel and with the plain version -----
-        compare_plain_step(att, trainer, batch)
+        if 7 not in skip:
+            compare_plain_step(att, trainer, batch)
         del trainer, batch
 
         from ruart_tpu_torch.cli import main_test as cli_main_test
@@ -3295,75 +3321,83 @@ def main() -> int:
         del predictor, test_data
 
         # -- phase 8: the serving stack (main paths 4 and on) ------------------
-        t0 = time.time()
-        serve_stack(params, reqs, results, drive)
-        serve_clis(folder, predict, reqs, drive)
-        for label, launched, n in driven:
-            log(f"  phase 8 path {label}: {n} batches, launches {launched}")
+        if 8 not in skip:
+            t0 = time.time()
+            serve_stack(params, reqs, results, drive)
+            serve_clis(folder, predict, reqs, drive)
+            for label, launched, n in driven:
+                log(f"  phase 8 path {label}: {n} batches, launches {launched}")
+            log(f"phase 8 ok in {time.time() - t0:.1f} s")
         n_phase8 = len(driven)
-        log(f"phase 8 ok in {time.time() - t0:.1f} s")
 
         # -- phase 9: BF16, INT8+BF16, the other conf branches --------------
-        t0 = time.time()
-        bf16_serving(params, reqs, drive)
-        k1_bf16 = time_kernel(att, shape, "bfloat16")
-        log_timing("K1 bf16", shape, k1_bf16)
-        log_timing("K1 bf16 (for information)", CHUNK_SHAPE,
-                   time_kernel(att, CHUNK_SHAPE, "bfloat16"))
-        bf16_training(att, root, conf, drive)
-        branch_forwards(reqs, root, drive)
-        for label, launched, n in driven[n_phase8:]:
-            log(f"  phase 9 path {label}: {n} batches or steps, launches "
-                f"{launched}")
-        log(f"phase 9 ok in {time.time() - t0:.1f} s")
+        if 9 not in skip:
+            t0 = time.time()
+            bf16_serving(params, reqs, drive)
+            k1_bf16 = time_kernel(att, shape, "bfloat16")
+            log_timing("K1 bf16", shape, k1_bf16)
+            log_timing("K1 bf16 (for information)", CHUNK_SHAPE,
+                       time_kernel(att, CHUNK_SHAPE, "bfloat16"))
+            bf16_training(att, root, conf, drive)
+            branch_forwards(reqs, root, drive)
+            for label, launched, n in driven[n_phase8:]:
+                log(f"  phase 9 path {label}: {n} batches or steps, launches "
+                    f"{launched}")
+            log(f"phase 9 ok in {time.time() - t0:.1f} s")
 
         # -- phase 10: the (dp, tp) mesh ------------------------------------
-        t0 = time.time()
-        sharded_err = check_sharded_attention(att)
-        k1_shards = {}
-        for n_heads in (6, 3):
-            shard = (SERVE_SHAPE[0], SERVE_SHAPE[1], n_heads) + SERVE_SHAPE[3:]
-            k1_shards[n_heads] = time_kernel(att, shard)
-            log_timing(f"K1 on a tp shard of {n_heads} heads", shard,
-                       k1_shards[n_heads])
-        nccl_world_of_one()
-        engine, _ = build_engine("auto", params)
-        sharded_launches = mesh_ranks(att, root, engine, params, got)
-        del engine
-        log(f"phase 10 ok in {time.time() - t0:.1f} s")
+        if 10 not in skip:
+            t0 = time.time()
+            sharded_err = check_sharded_attention(att)
+            k1_shards = {}
+            for n_heads in (6, 3):
+                shard = (SERVE_SHAPE[0], SERVE_SHAPE[1], n_heads) + SERVE_SHAPE[3:]
+                k1_shards[n_heads] = time_kernel(att, shard)
+                log_timing(f"K1 on a tp shard of {n_heads} heads", shard,
+                           k1_shards[n_heads])
+            nccl_world_of_one()
+            engine, _ = build_engine("auto", params)
+            sharded_launches = mesh_ranks(att, root, engine, params, got)
+            del engine
+            log(f"phase 10 ok in {time.time() - t0:.1f} s")
 
         # -- phase 11: PHOC, native host code, chunked BERT, attention maps --
-        t0 = time.time()
         n_phase10 = len(driven)
-        engine, _ = build_engine("auto", params)
-        words = native_host(engine, reqs)
-        phoc_paths(words, reqs, root, conf, drive)
-        k1_chunk = chunked_bert(att, params, engine, reqs, drive)
-        attention_maps(engine, reqs, root, drive)
-        del engine
-        for label, launched, n in driven[n_phase10:]:
-            log(f"  phase 11 path {label}: {n} batches or steps, launches "
-                f"{launched}")
-        log(f"phase 11 ok in {time.time() - t0:.1f} s (K1 at the chunk's "
-            f"shape {k1_chunk[0]:.4f} ms)")
+        if 11 not in skip:
+            t0 = time.time()
+            engine, _ = build_engine("auto", params)
+            words = native_host(engine, reqs)
+            phoc_paths(words, reqs, root, conf, drive)
+            k1_chunk = chunked_bert(att, params, engine, reqs, drive)
+            attention_maps(engine, reqs, root, drive)
+            del engine
+            for label, launched, n in driven[n_phase10:]:
+                log(f"  phase 11 path {label}: {n} batches or steps, launches "
+                    f"{launched}")
+            log(f"phase 11 ok in {time.time() - t0:.1f} s (K1 at the chunk's "
+                f"shape {k1_chunk[0]:.4f} ms)")
 
         # -- phase 12: the eval step as one CUDA graph per signature --------
-        t0 = time.time()
         n_phase11 = len(driven)
-        graph_answers = graphs_against_eager(params, reqs, drive)
-        warm_graphs(params, reqs, drive)
-        graph_server(params, reqs, graph_answers, drive)
-        main_test_graphs(folder, predict, drive)
-        graph_numbers(params, reqs)
-        int8_tp_ranks(root)
-        for label, launched, n in driven[n_phase11:]:
-            log(f"  phase 12 path {label}: {n} batches or steps, launches "
-                f"{launched}")
-        log(f"phase 12 ok in {time.time() - t0:.1f} s")
+        if 12 not in skip:
+            t0 = time.time()
+            graph_answers = graphs_against_eager(params, reqs, drive)
+            warm_graphs(params, reqs, drive)
+            graph_server(params, reqs, graph_answers, drive)
+            main_test_graphs(folder, predict, drive)
+            graph_numbers(params, reqs)
+            int8_tp_ranks(root)
+            for label, launched, n in driven[n_phase11:]:
+                log(f"  phase 12 path {label}: {n} batches or steps, launches "
+                    f"{launched}")
+            log(f"phase 12 ok in {time.time() - t0:.1f} s")
 
         # -- phase 13: the train step as one CUDA graph per signature -------
         t0 = time.time()
         n_phase12 = len(driven)
+        if phase13 is not None:
+            phase13(graph_setup, drive)
+            return 0
         arms = train_graph_equality(graph_setup, drive)
         dropped_graph_arms(graph_setup, drive)
         train_graph_timing(arms, graph_setup)

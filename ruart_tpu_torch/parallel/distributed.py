@@ -77,8 +77,9 @@ def maybe_initialize_distributed(opt: Dict[str, Any], device=None,
                                  backend: Optional[str] = None) -> bool:
     """``torch.distributed.init_process_group`` when the conf asks for it.
 
-    ``device`` is the rank's torch device type or device (``None``: CUDA
-    when a card is visible); the backend is NCCL for CUDA and gloo for the
+    ``device`` is the rank's torch device type or device: CUDA when None,
+    which raises RuntimeError when no card is visible; the CPU only when
+    the caller names it. The backend is NCCL for CUDA and gloo for the
     CPU unless ``backend`` names one (gloo also takes CUDA tensors, which
     lets several ranks share one card, as NCCL does not). On CUDA the
     rank's card (:func:`local_device_id`) becomes the current device.
@@ -88,9 +89,11 @@ def maybe_initialize_distributed(opt: Dict[str, Any], device=None,
         return True
     if "coordinator_address" not in opt:
         return False
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    kind = torch.device(device).type
+    kind = torch.device("cuda" if device is None else device).type
+    if kind == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "maybe_initialize_distributed: no CUDA card is visible; name "
+            "device='cpu' to join the world on the CPU")
     if backend is None:
         backend = "nccl" if kind == "cuda" else "gloo"
     world = int(opt.get("num_processes", 1))

@@ -68,7 +68,7 @@ from ruart_tpu_torch.ops.quant import quantize_bert_params
 from ruart_tpu_torch.text.wordpiece import WordPieceTokenizer
 from ruart_tpu_torch.train.train_step import make_eval_step
 from ruart_tpu_torch.utils.gctune import tune_gc
-from ruart_tpu_torch.utils.graphs import SignatureGraphs
+from ruart_tpu_torch.utils.graphs import SignatureGraphs, release
 
 log = logging.getLogger(__name__)
 
@@ -160,7 +160,8 @@ class InferenceEngine:
 
     def _load_model(self, spec: ModelSpec, params: Mapping[str, Any]):
         """Build the model and its eval step (the graphs of an earlier
-        model go with it)."""
+        model are released first)."""
+        release(getattr(self, "eval_step", None))
         with self.device:
             model = RUArtModel(spec)
         model.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()})
@@ -252,6 +253,12 @@ class InferenceEngine:
         return self._pool
 
     def close(self):
+        """Stop the worker pool and release the eval step's CUDA graphs (a
+        later call captures again)."""
+        self._close_pool()
+        release(self.eval_step)
+
+    def _close_pool(self):
         global _FORK_ENGINE
         if self._pool is not None:
             self._pool.terminate()
@@ -261,7 +268,8 @@ class InferenceEngine:
                 _FORK_ENGINE = None
 
     # the pool holds real worker processes: deterministic release with a
-    # with-block, plus a best-effort safety net on collection
+    # with-block, plus a best-effort safety net on collection (the graphs
+    # go with the engine's last reference: nothing refers back to it)
     def __enter__(self):
         return self
 
@@ -271,7 +279,7 @@ class InferenceEngine:
 
     def __del__(self):
         try:
-            self.close()
+            self._close_pool()
         except Exception:
             pass
 

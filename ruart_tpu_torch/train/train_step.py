@@ -107,7 +107,7 @@ def make_train_step(
     of a signature being its eager step, later calls replays. It stays
     eager where :func:`eager_reason` gives a reason. ``step.graphs`` is
     that ``SignatureGraphs`` once the first call with ``state`` made it,
-    else None."""
+    else None; ``step.release()`` frees its graphs (:class:`TrainStep`)."""
     size = mesh.size if mesh is not None else 1
 
     def device_step(state: TrainState, q: Dict[str, torch.Tensor],
@@ -131,24 +131,49 @@ def make_train_step(
         row_pinner()
         return loss.detach()
 
-    def train_step(state: TrainState, q, ocr, od, targets):
-        if train_step.state is not state:
-            train_step.state, train_step.graphs = state, None
+    return TrainStep(device_step, mesh, debug_nans, graphs)
+
+
+class TrainStep:
+    """The step :func:`make_train_step` returns. ``graphs`` is the
+    ``SignatureGraphs`` of the current ``state`` (None while eager or
+    before the first call); :meth:`release` frees its graphs. A call with
+    another ``state`` releases the graphs of the one before. Nothing the
+    step holds refers back to it, so a dropped step frees its graphs at
+    once (``utils.graphs``, Lifetime)."""
+
+    def __init__(self, device_step: Callable, mesh, debug_nans: bool,
+                 graphs: bool):
+        self.device_step = device_step
+        self.mesh = mesh
+        self.debug_nans = debug_nans
+        self.use_graphs = graphs
+        self.state: Optional[TrainState] = None
+        self.graphs: Optional[SignatureGraphs] = None
+
+    def __call__(self, state: TrainState, q, ocr, od, targets):
+        if self.state is not state:
+            self.release()
+            self.state, self.graphs = state, None
             device = next(state.model.parameters()).device
-            if eager_reason(device, mesh, debug_nans, graphs) is None:
-                train_step.graphs = SignatureGraphs(
-                    functools.partial(device_step, state), device,
+            if eager_reason(device, self.mesh, self.debug_nans,
+                            self.use_graphs) is None:
+                self.graphs = SignatureGraphs(
+                    functools.partial(self.device_step, state), device,
                     generators=(state.generator,))
         state.optimizer.advance()
-        if train_step.graphs is None:
-            loss = device_step(state, q, ocr, od, targets)
+        if self.graphs is None:
+            loss = self.device_step(state, q, ocr, od, targets)
         else:  # the graph's loss is overwritten by its next replay
-            loss = train_step.graphs(q, ocr, od, targets).clone()
+            loss = self.graphs(q, ocr, od, targets).clone()
         state.step += 1
-        return state, dp_mean(loss, mesh)
+        return state, dp_mean(loss, self.mesh)
 
-    train_step.state = train_step.graphs = None
-    return train_step
+    def release(self) -> None:
+        """Free the graphs of the current state now; a later call captures
+        again."""
+        if self.graphs is not None:
+            self.graphs.release()
 
 
 def dp_mean(x: torch.Tensor, mesh) -> torch.Tensor:

@@ -33,7 +33,9 @@ world drives one of them; ``cli.main`` starts one rank per card.
 for NaN/Inf (``train_step``). On one card the train and eval steps replay
 one CUDA graph per batch signature (``train_step.make_train_step`` and
 ``make_eval_step``); each train step hands back a loss of its own, which
-``DEBUG_SDT`` prints and the log cadence stacks. ``DEBUG`` makes
+``DEBUG_SDT`` prints and the log cadence stacks. :meth:`Trainer.train`
+releases the train step's graphs when its steps are done, and an eval step
+that is replaced releases its graphs first. ``DEBUG`` makes
 :meth:`Trainer.train` a dry run of the data path: it scans every split
 without the model, writes the length histograms (``data/debug.py``) and
 returns.
@@ -96,6 +98,7 @@ from ruart_tpu_torch.train.train_step import (
     make_eval_step,
     make_train_step,
 )
+from ruart_tpu_torch.utils.graphs import release
 from ruart_tpu_torch.utils.meters import AverageMeter
 
 log = logging.getLogger(__name__)
@@ -607,6 +610,7 @@ class Trainer:
                 )
         drain_losses(batch_i)
         self.train_seconds = time.time() - start - eval_seconds
+        self.train_step.release()  # training is over: its graphs go now
         self.run_eval(val_data, batch_i)
         self.run_eval(train_data, batch_i, mode="train")
         log.info("Training over")
@@ -643,6 +647,7 @@ class Trainer:
             params = shard_params(params, self.mesh,
                                   qspec.bert.num_attention_heads)
         qmodel.load_state_dict(params)
+        release(self.eval_step)
         self.eval_step = make_eval_step(qmodel, self.loss_fn, self.mesh,
                                         self._debug_nans)
         log.info("INT8_BERT: encoder Linear layers quantized for inference")

@@ -49,6 +49,17 @@ signature, replayed as one launch.
   naming the signature; nothing falls back to eager. ``eager_when`` names
   the one call-time condition under which the caller wants the step run
   eagerly (``record_intermediates``, whose lists a replay cannot fill).
+* **Lifetime:** an owner that stops using its graphs calls
+  :meth:`SignatureGraphs.release`, which frees them there and then:
+  after a synchronize, each graph is reset, and the static tensors, the
+  pool and the side stream are dropped. A later call captures its
+  signature anew. Nothing here refers back to its owner, so an owner
+  dropped without ``release`` frees its graphs when its last reference
+  goes, never at a later run of Python's cyclic collector, which starts
+  at an arbitrary allocation: train graphs freed by a collection between
+  two profiler sessions made the next profiled replay of another graph
+  segfault inside CUPTI's callback on ``cuGraphLaunch`` (PERF.md,
+  section 6).
 """
 
 from __future__ import annotations
@@ -98,6 +109,13 @@ def copy_into(static, args) -> None:
             s.copy_(a, non_blocking=True)
 
 
+def release(step) -> None:
+    """``step.release()`` for a :class:`SignatureGraphs`; an eager step
+    holds no graphs."""
+    if isinstance(step, SignatureGraphs):
+        step.release()
+
+
 @dataclasses.dataclass
 class Graph:
     """One captured signature: its graph, static inputs and outputs, the
@@ -131,6 +149,17 @@ class SignatureGraphs:
 
     def __len__(self) -> int:
         return len(self.graphs)
+
+    def release(self) -> None:
+        """Free every graph now: wait for the device, reset each graph,
+        drop the static inputs and outputs, the pool and the side stream.
+        A later call captures its signature anew."""
+        if self.graphs:
+            torch.cuda.synchronize(self.device)
+            for entry in self.graphs.values():
+                entry.graph.reset()
+        self.graphs = {}
+        self.pool = self._stream = None
 
     def __call__(self, *args):
         if self.eager_when is not None and self.eager_when():

@@ -13,7 +13,8 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ruart_tpu")
 TOOLS = [REPO / "tools" / name for name in (
-    "torch_kernel_sanitize.py", "torch_train_graph_crash.py")]
+    "torch_kernel_sanitize.py", "torch_train_graph_crash.py",
+    "native_stack.py")]
 SOURCES = sorted((REPO / "ruart_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"
 ] + TOOLS
