@@ -239,7 +239,16 @@ non-zero when there is none, or when any phase fails:
    ``cuGraphLaunch`` (PERF.md, section 6); the port's graphs now go when
    their owner does. The smoke leaves CUPTI at PyTorch's settings;
    ``--cupti-default`` also clears ``TEARDOWN_CUPTI`` and
-   ``DISABLE_CUPTI_LAZY_REINIT`` from the environment first.
+   ``DISABLE_CUPTI_LAZY_REINIT`` from the environment first. (g) After
+   (c), graphs released between two profiler sessions: a graph engine
+   captures its signatures of the 40 requests and a LOCK_BERT-off graph
+   train step runs its 10 steps; a first session replays the kept fp32
+   graph arm (one step) and the engine's eval graphs (one ``predict``);
+   outside any session the train step is released
+   (``TrainStep.release``) and dropped, every graph of it gone; a second
+   session replays the kept train graph and the eval graphs again (K1 12
+   per step or batch in each, no new capture). Prints the graphs
+   destroyed between the sessions and the graph launches in each.
 
 Checks whose pass depends on chance (a timing, a profiler count, the
 spread of runs that add with atomics) print their margin, the value over
@@ -2997,6 +3006,80 @@ def train_graph_timing(arms, setup):
     return numbers
 
 
+def released_between_sessions(kept, engine, reqs, owners, drive, label):
+    """Graphs released between two profiler sessions, then surviving graphs
+    replayed in the second: phase 13 (g), and with more owners
+    ``tools/torch_train_graph_crash.py --form release``. ``kept``: (train
+    step, its state, a batch whose graph is captured); ``engine``: a graph
+    engine whose signatures of ``reqs`` are captured; ``owners``: (name,
+    graphs, release) per owner, ``graphs()`` giving the ``SignatureGraphs``
+    whose graphs go and ``release()`` freeing them through the port's API.
+    Each session replays the kept train graph (one step) and the engine's
+    eval graphs (one ``predict``), K1 12 per step or batch by ``drive``;
+    between them, outside any session, every owner releases. Returns
+    (graphs destroyed at the releases, graphs the owners held, graph
+    launches in each session)."""
+    import weakref
+
+    step, state, batch = kept
+    n = 1 + -(-len(reqs) // engine.batch_size)
+    captured = (len(step.graphs), engine.graph_count)
+
+    def replays(session):
+        return drive(f"{label} session {session}: kept train and eval graphs",
+                     lambda: (step(state, *batch), engine.predict(reqs)), n,
+                     exact=True)
+
+    launches = [profile_counts(lambda: replays(1))[4]]
+    destroyed = held = 0
+    for name, graphs, release in owners:
+        refs = [weakref.ref(g.graph) for g in graphs().graphs.values()]
+        release()
+        gone = sum(r() is None for r in refs)
+        log(f"{label}: {name}: {gone} of {len(refs)} graphs destroyed "
+            f"between the sessions")
+        destroyed, held = destroyed + gone, held + len(refs)
+    launches.append(profile_counts(lambda: replays(2))[4])
+    log(f"{label}: {destroyed} of {held} graphs destroyed between two "
+        f"profiler sessions; graph launches in the sessions {launches} "
+        f"(profiler); {n} replays in each, one of the kept train graph "
+        f"and {n - 1} of eval graphs (by K1's count)")
+    if (len(step.graphs), engine.graph_count) != captured:
+        raise AssertionError(f"{label}: the kept steps captured anew")
+    return destroyed, held, launches
+
+
+def released_graphs(arms, setup, drive, device="cuda"):
+    """Phase 13 (g), after (c): a graph engine's signatures captured and a
+    LOCK_BERT-off graph train step run for its 10 steps; the first profiler
+    session replays the kept fp32 graph arm and the engine's eval graphs;
+    outside any session the train step is released (``TrainStep.release``)
+    and dropped; the second session replays both again. The train step's
+    graphs must all be gone before the second session."""
+    reqs = requests()
+    engine = build_engine("auto", setup["params"], device=device)[0]
+    engine.predict(reqs)  # captures this pass's signatures
+    opt = {k: v for k, v in setup["opt"].items() if k != "LOCK_BERT"}
+    held = {"arm": train_arm(setup, opt, True, device)}
+    step, state, batches = held["arm"]
+    drive("13 (g) LOCK_BERT off graph arm, released",
+          lambda: run_arm(step, state, batches), N_GRAPH_STEPS, exact=True)
+    del step, state
+
+    def release():
+        held.pop("arm")[0].release()
+
+    t0 = time.time()
+    destroyed, n_graphs, _ = released_between_sessions(
+        (*arms["graph"], setup["batches"][0]), engine, reqs,
+        [("a LOCK_BERT-off graph train step, released and dropped",
+          lambda: held["arm"][0].graphs, release)], drive, "phase 13 (g)")
+    log(f"phase 13 (g): {time.time() - t0:.1f} s for the two sessions and "
+        f"the release")
+    if not destroyed == n_graphs > 0:
+        raise AssertionError("phase 13: a released train step kept graphs")
+
+
 def generator_registration():
     """Phase 13 (e): a graph that registers the dropout generator draws, at
     each replay, what eager draws from the same generator state; a capture
@@ -3267,6 +3350,7 @@ def run(phase13=None, skip=()) -> int:
         # what phase 13 trains from: the trained weights, 5 batches
         graph_setup = {
             "opt": dict(trainer.opt), "bert": trainer.spec.bert,
+            "params": params,  # the serving weights, for 13 (g)'s engine
             "weights": {k: v.detach().clone()
                         for k, v in trainer.model.state_dict().items()},
             "batches": train_batches_on_device(trainer, N_GRAPH_BATCHES)}
@@ -3401,6 +3485,7 @@ def run(phase13=None, skip=()) -> int:
         arms = train_graph_equality(graph_setup, drive)
         dropped_graph_arms(graph_setup, drive)
         train_graph_timing(arms, graph_setup)
+        released_graphs(arms, graph_setup, drive)
         del arms, graph_setup
         log(f"phase 13 (d): phase 6's 20 steps through cli.main: "
             f"{train_cost['captures']} captures, seconds per capture "

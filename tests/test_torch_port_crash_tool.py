@@ -3,7 +3,15 @@ helper (``tools/native_stack.py``) on the CPU:
 
 * the tool's options parse (``--form smoke``, ``--gc``, ``--skip``) and
   refuse a phase that the smoke forms cannot leave out, or phase 9
-  without phase 11 (which reads what 9 writes);
+  without phase 11 (which reads what 9 writes), or 10 without 12;
+* ``--form release``, on a ``chip_smoke`` whose device parts are fakes
+  that log each call and whether a profiler session is open: the kept
+  train step and engine capture first, then per rep the owners capture,
+  a session replays the kept train graph and the eval graphs, outside any
+  session the engines are quantized and closed and a train step gets a
+  new state (its capture), and a second session replays the same; phase
+  13 (g) of the smoke releases its one train step between its two
+  sessions;
 * its lifetime log records a captured graph, the profiler sessions, and
   the graph's destruction with the generation of the collection that
   freed it; its ``--gc`` hook collects just before, or inside, 13 (c)'s
@@ -167,3 +175,179 @@ def test_distributed_needs_a_card_unless_the_cpu_is_named(monkeypatch):
     assert distributed.maybe_initialize_distributed(dict(opt), "cpu")
     assert joined == ["gloo"]
     assert distributed.maybe_initialize_distributed({}, None) is False
+
+
+def test_release_form_options():
+    args = tool.parser().parse_args(
+        ["--form", "release", "--skip", "1,4,5,7,8,9,11", "--reps", "3"])
+    assert (args.form, args.skip, args.reps) == (
+        "release", {1, 4, 5, 7, 8, 9, 11}, 3)
+    assert "form release" in tool.options(args)
+    with pytest.raises(SystemExit):   # 12 (f) reads the files 10 writes
+        tool.parser().parse_args(["--form", "release", "--skip", "10"])
+
+
+class _Ref:
+    """A weak-referenceable stand-in for a CUDA graph."""
+
+
+class _FakeGraphs:
+    """A ``SignatureGraphs`` stand-in holding ``n`` graphs."""
+
+    def __init__(self, n):
+        self.graphs = {i: Graph(_Ref(), (), None, (), 0.0) for i in range(n)}
+
+    def __len__(self):
+        return len(self.graphs)
+
+
+class _Owners:
+    """Fake train steps and engines that log each call with whether a
+    profiler session is open; releases drop their graphs as the port's
+    API does."""
+
+    def __init__(self):
+        self.events, self.session = [], False
+
+    def log(self, event):
+        self.events.append((event, self.session))
+
+    def profile_counts(self, fn):
+        self.log("session start")
+        self.session = True
+        fn()
+        self.session = False
+        self.log("session stop")
+        return 0.0, 0.0, 0, 0, 4
+
+    def step(self, name):
+        owners = self
+
+        class Step:
+            graphs = None
+
+            def __call__(self, state, *batch):
+                if self.graphs is None or state is not self.state:
+                    self.state, self.graphs = state, _FakeGraphs(2)
+                    owners.log(f"capture {name}")
+                else:
+                    owners.log(f"replay {name}")
+                return state, 0.0
+
+            def release(self):
+                self.graphs = _FakeGraphs(0)
+                owners.log(f"release {name}")
+
+        return Step()
+
+    def engine(self, name):
+        owners = self
+
+        class Engine:
+            batch_size = 16
+            eval_step = _FakeGraphs(0)
+
+            @property
+            def graph_count(self):
+                return len(self.eval_step)
+
+            def predict(self, reqs):
+                verb = "replay" if self.graph_count else "capture"
+                self.eval_step = self.eval_step or _FakeGraphs(3)
+                owners.log(f"{verb} {name}")
+
+            def quantize(self):
+                self.eval_step = _FakeGraphs(0)
+                owners.log(f"quantize {name}")
+
+            def close(self):
+                self.eval_step = _FakeGraphs(0)
+                owners.log(f"close {name}")
+
+        return Engine()
+
+
+@pytest.fixture
+def fake_smoke(monkeypatch):
+    """``chip_smoke`` with its device parts replaced by :class:`_Owners`."""
+    import chip_smoke as cs
+
+    owners = _Owners()
+    made = iter(range(100))
+
+    def train_arm(setup, opt, graphs, device="cuda"):
+        name = ("kept" if "LOCK_BERT" in opt else "lock_off") + str(next(made))
+        return owners.step(name), object(), [(0,)] * 10
+
+    monkeypatch.setattr(cs, "profile_counts", owners.profile_counts)
+    monkeypatch.setattr(cs, "log", lambda *a: None)
+    monkeypatch.setattr(cs, "requests", lambda: [{}] * 40)
+    monkeypatch.setattr(cs, "train_arm", train_arm)
+    monkeypatch.setattr(cs, "run_arm", lambda step, state, batches: [
+        step(state, *b) for b in batches])
+    monkeypatch.setattr(cs, "build_engine", lambda impl, params=None, device=None:
+                        (owners.engine(f"engine{next(made)}"), params))
+    setup = {"opt": {"LOCK_BERT": 1}, "params": {}, "batches": [(0,)] * 5}
+
+    def drive(label, fn, n, bf16=False, exact=False):
+        return fn()
+
+    monkeypatch.setattr(cs, "run", lambda phase13, skip: phase13(setup, drive))
+    return cs, owners, setup, drive
+
+
+def _outside(events):
+    """The events between each session's stop and the next one's start."""
+    spans, current = [], None
+    for event, in_session in events:
+        if event == "session stop":
+            current = []
+        elif event == "session start":
+            if current is not None:
+                spans.append(current)
+            current = None
+        elif current is not None:
+            assert not in_session
+            current.append(event)
+    return spans
+
+
+def test_release_form_frees_owners_between_two_sessions(fake_smoke, tmp_path,
+                                                        capsys):
+    cs, owners, _, _ = fake_smoke
+    lifetimes = tool.Lifetimes(str(tmp_path / "log.jsonl"))
+    args = tool.parser().parse_args(["--form", "release", "--reps", "2"])
+    try:
+        tool.release_form(cs, args, lifetimes)
+    finally:
+        gc.enable()
+        gc.callbacks.remove(lifetimes._collector)
+    events = [e for e, _ in owners.events]
+    sessions = [owners.events[i + 1:j] for i, j in zip(
+        *[[k for k, (e, _) in enumerate(owners.events) if e == name]
+          for name in ("session start", "session stop")])]
+    assert len(sessions) == 4
+    for inside in sessions:   # the kept train graph, then the eval graphs
+        assert [e for e, _ in inside] == ["replay kept0", "replay engine1"]
+        assert all(s for _, s in inside)
+    between = _outside(owners.events)
+    assert len(between) == 3
+    for rep in (0, 2):        # each rep's releases, outside any session
+        assert [e.split()[0] for e in between[rep]] == [
+            "quantize", "close", "capture"]
+    assert events.index("capture kept0") < events.index("capture engine1") \
+        < events.index("session start")
+    assert events.count("capture engine1") == 1   # no new capture
+    out = capsys.readouterr().out
+    assert out.count("10 of 10 graphs destroyed between two profiler "
+                     "sessions, graph launches [4, 4]") == 2
+
+
+def test_smoke_phase_13g_releases_one_owner_between_sessions(fake_smoke):
+    cs, owners, setup, drive = fake_smoke
+    kept = cs.train_arm(setup, setup["opt"], True)
+    cs.run_arm(*kept)
+    cs.released_graphs({"graph": kept[:2]}, setup, drive)
+    between = _outside(owners.events)
+    assert between == [["release lock_off2"]]
+    assert [e for e, _ in owners.events].count("session start") == 2

@@ -14,6 +14,10 @@ step a ``SignatureGraphs`` and counts each graph's replays and resets.
 * The owners release where they stop using their graphs: a train step
   called with another state, ``Trainer._apply_int8_eval`` replacing the
   eval step, ``InferenceEngine.close`` and ``quantize``.
+* The owners the crash tool's ``--form release`` frees between two
+  profiler sessions free their graphs at the API call, with the
+  collector off, and a kept train step and engine then replay their
+  graphs, none captured anew or reset.
 """
 
 import contextlib
@@ -205,3 +209,47 @@ def test_owners_release_where_they_stop_using_graphs(graph_api):
     with engine:
         pass                               # close()
     assert old.graph.resets == 1 and engine.graph_count == 0
+
+
+def test_release_form_owners_free_at_their_call(graph_api):
+    """The owners of ``tools/torch_train_graph_crash.py --form release``,
+    with the collector off: each frees its graphs at the API call
+    (``quantize()``, ``close()`` and the drop, a new state, ``del``), and
+    the kept train step and engine then replay what they captured."""
+    with _collector_off():
+        trainer, batch = _trainer()
+        kept = trainer.train_step
+        kept(trainer.state, *batch)
+        engine = _engine(trainer)
+        engine.predict(REQUESTS)
+        survivors = [e.graph for e in list(kept.graphs.graphs.values())
+                     + list(engine.eval_step.graphs.values())]
+        quantized, closed = _engine(trainer), _engine(trainer)
+        quantized.predict(REQUESTS)
+        closed.predict(REQUESTS)
+        (new_state, new_batch), (dropped, dropped_batch) = (
+            _trainer() for _ in range(2))
+        new_state.train_step(new_state.state, *new_batch)
+        dropped.train_step(dropped.state, *dropped_batch)
+
+        def refs(graphs):
+            return [weakref.ref(e.graph) for e in graphs.graphs.values()]
+
+        released = [(refs(quantized.eval_step), quantized.quantize),
+                    (refs(closed.eval_step), closed.close),
+                    (refs(new_state.train_step.graphs),
+                     lambda: new_state.train_step(
+                         new_state.state.__class__(
+                             new_state.model, new_state.optimizer,
+                             new_state.state.generator), *new_batch))]
+        for graphs, release in released:
+            release()
+            assert graphs and not any(r() for r in graphs)
+        graphs = refs(dropped.train_step.graphs)
+        del closed, dropped
+        assert graphs and not any(r() for r in graphs)
+        before = [g.replays for g in survivors]
+        kept(trainer.state, *batch)
+        engine.predict(REQUESTS)        # two batches of one signature
+    assert [(g.replays - n, g.resets) for g, n in zip(survivors, before)] \
+        == [(1, 0), (2, 0)]

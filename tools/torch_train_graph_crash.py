@@ -3,14 +3,16 @@
 replay of the PyTorch port segfaulted, and count how often it crashes.
 
     python3 tools/torch_train_graph_crash.py
-        [--form after|inside|smoke|smoke_inside]
+        [--form after|inside|smoke|smoke_inside|release]
         [--gc none|before|inside|off] [--skip 1,4,...] [--reps R]
         [--arms N] [--hold] [--phase6-profile] [--sessions N]
-        [--no-teardown] [--root DIR] [--runs R --logs DIR]
+        [--then-release N] [--no-teardown] [--root DIR]
+        [--runs R --logs DIR]
 
-Each form ends in phase 13 (c) of ``chip_smoke.py``: the kept fp32 eager
-and graph train arms in turns, each round ending in one step under
-``torch.profiler`` (PyTorch's CUPTI settings unless ``--no-teardown``).
+Each form but ``release`` ends in phase 13 (c) of ``chip_smoke.py``: the
+kept fp32 eager and graph train arms in turns, each round ending in one
+step under ``torch.profiler`` (PyTorch's CUPTI settings unless
+``--no-teardown``).
 
 * ``--form smoke``: ``chip_smoke.py``'s own phases 1-12 in this process
   (``chip_smoke.run``; ``--skip`` leaves out any of 1, 4, 5, 7-12), then
@@ -20,7 +22,21 @@ and graph train arms in turns, each round ending in one step under
 * ``--form smoke_inside``: the same with 13 (a) as it first ran (as
   ``--form inside`` below) and 13 (c) right after it in the first rep:
   the input under which the first smoke with three graph arms of their
-  own crashed in 4 of 4 runs.
+  own crashed in 4 of 4 runs. ``--then-release N`` goes on, in the same
+  process, with the release form's steps below (N reps) after 13 (c):
+  one process then holds a run of each form, the release form's after a
+  longer prefix.
+* ``--form release``: phases 1-12 (less ``--skip``), the automatic
+  collector off, a kept fp32 graph train arm (10 steps) and a kept graph
+  engine (one ``predict`` of the 40 requests), then ``--reps`` times:
+  four more owners built, each with its graphs captured (a graph engine
+  to be quantized, one to be closed and dropped, a LOCK_BERT-off train
+  step to be called with a new state, one to be dropped); a profiler
+  session replays the kept train graph and the kept engine's eval graphs;
+  outside any session every owner frees its graphs through the port's
+  API (``quantize()``, ``close()``, the new state, ``del``); a second
+  session replays the kept graphs (``chip_smoke.
+  released_between_sessions``, which phase 13 (g) runs with one owner).
 * ``--form after`` (the default): phase 6 alone (training through the
   CLI, its trainer dropped), 13 (a) as ``chip_smoke.py`` runs it, then
   ``--reps`` times ``--arms`` (3) more LOCK_BERT-off graph arms, each run
@@ -77,8 +93,10 @@ collector, segfaulted in 5 of 5 runs with PyTorch's CUPTI settings and
 in 1 of 1 with ``--no-teardown``, each inside CUPTI's callback on
 ``cuGraphLaunch`` after a collection freed dropped train graphs between
 two profiler sessions; on the tree whose graph owners free their graphs
-at once, in none. The phase-6-only forms never crashed, with or without
-``--gc``.
+at once, in none. With ``--skip 1,4,5,7,8`` it still crashed that port in
+2 of 2; leaving out 9 and 11, or 12, stopped it. ``--form release`` on
+the same phases crashed neither port. The phase-6-only forms never
+crashed, with or without ``--gc``.
 """
 
 import argparse
@@ -98,11 +116,13 @@ import weakref
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUN_TIMEOUT = 900  # seconds for one fresh process of --runs
 SKIPPABLE = (1, 4, 5, 7, 8, 9, 10, 11, 12)
+NEEDS = {9: 11, 10: 12}  # phase: the later phase that reads its files
 
 
 def options(args) -> str:
     return (f"form {args.form}, gc {args.gc}, skip {args.skip or '-'}, reps "
-            f"{args.reps}, {args.arms} dropped LOCK_BERT-off graph arms, "
+            f"{args.reps}, then release {args.then_release}, {args.arms} "
+            f"dropped LOCK_BERT-off graph arms, "
             f"hold {args.hold}, phase6_profile {args.phase6_profile}, "
             f"sessions {args.sessions}, no_teardown {args.no_teardown}, "
             f"root {args.root or HERE}")
@@ -274,6 +294,88 @@ def smoke_form(cs, args, lifetimes, collector) -> None:
             lifetimes.phase = f"13 (c) rep {rep}"
             cs.train_graph_timing(arms, setup)
             print(f"rep {rep}: 13 (c) ran", flush=True)
+        if args.then_release:
+            release_steps(cs, args.then_release, lifetimes, setup, drive)
+
+    lifetimes.phase = "phases 1-12"
+    cs.run(phase13=phase13, skip=args.skip)
+
+
+def release_owners(cs, setup, reqs):
+    """The owners whose graphs ``--form release`` frees between two
+    profiler sessions, each with its graphs captured: (name, graphs,
+    release) as ``chip_smoke.released_between_sessions`` takes them. Each
+    frees through the port's API: ``InferenceEngine.quantize()``,
+    ``InferenceEngine.close()`` and the engine dropped, a LOCK_BERT-off
+    train step called with a new state (its graphs for the old one go, the
+    new one's are captured), a LOCK_BERT-off train step dropped."""
+    held = {}
+    for name in ("quantize", "close"):
+        held[name] = cs.build_engine("auto", setup["params"])[0]
+        held[name].predict(reqs)
+    lock_off = {k: v for k, v in setup["opt"].items() if k != "LOCK_BERT"}
+    for name in ("new state", "dropped"):
+        step, state, batches = cs.train_arm(setup, lock_off, True)
+        cs.run_arm(step, state, batches)
+        held[name] = (step, state, batches)
+
+    def close():
+        held.pop("close").close()
+
+    def new_state():
+        step, _, batches = held.pop("new state")
+        state = cs.train_arm(setup, lock_off, True)[1]
+        step(state, *batches[0])
+        held["new state"] = (step, state, batches)
+
+    def drop():
+        del held["dropped"]
+
+    return [
+        ("InferenceEngine.quantize()", lambda: held["quantize"].eval_step,
+         lambda: held["quantize"].quantize()),
+        ("InferenceEngine.close(), then dropped",
+         lambda: held["close"].eval_step, close),
+        ("a LOCK_BERT-off train step called with a new state",
+         lambda: held["new state"][0].graphs, new_state),
+        ("a LOCK_BERT-off train step dropped",
+         lambda: held["dropped"][0].graphs, drop)]
+
+
+def release_steps(cs, reps, lifetimes, setup, drive) -> None:
+    """The collector off, a kept fp32 graph train arm and a kept graph
+    engine, then ``reps`` times: the owners of :func:`release_owners`
+    built, a profiler session replaying the kept train graph and the kept
+    engine's eval graphs, every owner released outside any session, and a
+    second session replaying the kept graphs (``chip_smoke.
+    released_between_sessions``)."""
+    gc.disable()  # every graph goes through the port's API
+    lifetimes.write("gc disabled")
+    lifetimes.phase = "release: kept"
+    step, state, batches = cs.train_arm(setup, setup["opt"], True)
+    cs.run_arm(step, state, batches)
+    reqs = cs.requests()
+    engine = cs.build_engine("auto", setup["params"])[0]
+    engine.predict(reqs)  # captures this pass's signatures
+    for rep in range(reps):
+        lifetimes.phase = f"release rep {rep}: owners"
+        owners = release_owners(cs, setup, reqs)
+        lifetimes.phase = f"release rep {rep}"
+        destroyed, held, launches = cs.released_between_sessions(
+            (step, state, setup["batches"][0]), engine, reqs, owners,
+            drive, f"release rep {rep}")
+        lifetimes.phase = f"release rep {rep}: owners dropped"
+        del owners
+        print(f"release rep {rep}: {destroyed} of {held} graphs destroyed "
+              f"between two profiler sessions, graph launches {launches}",
+              flush=True)
+
+
+def release_form(cs, args, lifetimes) -> None:
+    """Phases 1-12 of ``chip_smoke.py`` (less ``--skip``), then
+    :func:`release_steps` ``--reps`` times."""
+    def phase13(setup, drive):
+        release_steps(cs, args.reps, lifetimes, setup, drive)
 
     lifetimes.phase = "phases 1-12"
     cs.run(phase13=phase13, skip=args.skip)
@@ -372,7 +474,9 @@ def one_process(args) -> int:
                       ("TEARDOWN_CUPTI", "DISABLE_CUPTI_LAZY_REINIT")),
           flush=True)
     t0 = time.time()
-    if args.form.startswith("smoke"):
+    if args.form == "release":
+        release_form(cs, args, lifetimes)
+    elif args.form.startswith("smoke"):
         smoke_form(cs, args, lifetimes, collector)
     else:
         phase6_forms(cs, att, args, lifetimes, collector)
@@ -425,33 +529,40 @@ def many(args, argv) -> int:
 
 def phase_list(text: str):
     """``--skip``: a comma-separated list of phases of SKIPPABLE (phase 11
-    reads the files phase 9 writes)."""
+    reads the files phase 9 writes, phase 12 (f) those of phase 10)."""
     phases = {int(p) for p in text.split(",") if p.strip()}
     if not phases <= set(SKIPPABLE):
         raise argparse.ArgumentTypeError(
             f"only phases {SKIPPABLE} can be skipped")
-    if 9 in phases and 11 not in phases:
-        raise argparse.ArgumentTypeError("phase 11 needs phase 9")
+    for needed, by in NEEDS.items():
+        if needed in phases and by not in phases:
+            raise argparse.ArgumentTypeError(
+                f"phase {by} needs phase {needed}")
     return frozenset(phases)
 
 
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--form", choices=("after", "inside", "smoke",
-                                      "smoke_inside"), default="after")
+                                      "smoke_inside", "release"),
+                   default="after")
     p.add_argument("--gc", choices=("none", "before", "inside", "off"),
                    default="none",
                    help="the collector at 13 (c)'s first profiled graph "
                         "replay of each timing run")
     p.add_argument("--skip", type=phase_list, default=frozenset(),
-                   help="form smoke: phases of 1-12 left out")
+                   help="forms smoke*, release: phases of 1-12 left out")
     p.add_argument("--arms", type=int, default=3,
                    help="LOCK_BERT-off graph arms built and dropped")
     p.add_argument("--hold", action="store_true",
                    help="hold the dropped arms to the end")
     p.add_argument("--reps", type=int, default=1,
                    help="forms after and smoke*: times the dropped arms "
-                        "and the timing run")
+                        "and the timing run; release: times the owners "
+                        "and the two sessions")
+    p.add_argument("--then-release", type=int, default=0, metavar="N",
+                   help="forms smoke*: after 13 (c), in the same process, "
+                        "the release form's steps with N reps")
     p.add_argument("--phase6-profile", action="store_true")
     p.add_argument("--sessions", type=int, default=0,
                    help="profiled train steps of the CLI's trainer, one "
@@ -471,8 +582,10 @@ def parser() -> argparse.ArgumentParser:
 
 def main() -> int:
     args = parser().parse_args()
-    if args.skip and not args.form.startswith("smoke"):
-        raise SystemExit("--skip needs a smoke form")
+    if args.skip and args.form in ("after", "inside"):
+        raise SystemExit("--skip needs a smoke or release form")
+    if args.then_release and not args.form.startswith("smoke"):
+        raise SystemExit("--then-release needs a smoke form")
     if args.runs:
         return many(args, sys.argv[1:])
     return one_process(args)
