@@ -1,0 +1,7 @@
+"""K1's share of its roofline in the scoring window, in percent."""
+
+from portbench import readers
+
+
+def read(record):
+    return readers.k1_roofline(record, "offline")
