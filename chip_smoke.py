@@ -6,10 +6,11 @@
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and exits
 non-zero when there is none, or when any phase fails:
 
-1. Build ``ruart_tpu_torch/csrc/attention.cu`` and ``attention_bf16.cu``
-   with nvcc, one process per source started together (print each
-   kernel's registers and spills from ``-Xptxas -v`` and the blocks an SM
-   keeps resident at the timed shapes) and hold the model-layout kernels
+1. Build ``ruart_tpu_torch/csrc/attention.cu``, ``attention_bf16.cu`` and
+   ``gemm_tf32x3.cu`` with nvcc, one process per source started together
+   (print each kernel's registers and spills from ``-Xptxas -v`` and the
+   blocks an SM keeps resident at the timed shapes) and hold the
+   model-layout kernels
    (K1/K2: ``attention.cu`` in fp32, ``attention_bf16.cu`` in bf16)
    against their plain PyTorch version on the card: both bias forms,
    fp32 and bf16, at the serving path's shapes (H 12, dh 64, L 32 and 50,
@@ -36,6 +37,21 @@ non-zero when there is none, or when any phase fails:
    under ``compute-sanitizer --tool memcheck`` and K1 at the race check's
    shapes under racecheck and synccheck, 0 errors each. compute-sanitizer
    must be installed; where it cannot attach to the card, that is printed.
+   (h) G1, the encoder's fp32 Linears (``csrc/gemm_tf32x3.cu``, built with
+   the attention sources): at the benchmark cells' token counts (4,352,
+   7,936, 14,592) each Linear of a layer (Q/K/V in one launch, the
+   intermediate with its gelu), at ragged M and at the tp 2 shards'
+   widths, against an fp64 product and cuBLAS's FFMA ``F.linear`` on the
+   same inputs: G1's worst error (over the scale |x| |w|^T of each sum)
+   within twice FFMA's worst; the edges of its 128 x 128 tile (M 1 and
+   130, N 128 and 256, K of one stage), within 1e-5; a launch captured in a CUDA graph and replayed on new inputs
+   byte-equal to an eager launch; the autograd path's gradients within
+   1e-5 of ``F.linear``'s; bf16, a non-contiguous input, K or N it does
+   not take and a CPU weight refused. One layer's launches timed hot in
+   L2 beside the plain version and FFMA ``F.linear``. Every path of the
+   later phases counts G1's launches beside K1's: 4 a layer in fp32 (the
+   serving run of phase 2 is held to it), none under ``BF16`` or
+   ``INT8_BERT``.
 2. Serve 40 synthetic requests through ``InferenceEngine.predict`` at the
    flagship width (``stvqa_config(vocab_size=5000, batch_size=16)``,
    BERT-base, random weights from a seeded ``torch.Generator``): three
@@ -1169,6 +1185,181 @@ def check_autograd(att):
         raise AssertionError("attention autograd.Function disagrees with the "
                              "plain version's gradient")
     return worst
+
+
+# -- G1: the encoder's fp32 Linears (csrc/gemm_tf32x3.cu) -----------------
+
+# (M, N, K, weights, gelu, bias): the Linears of one encoder layer at the
+# benchmark cells' token counts (the training cell's 4,352 packed tokens,
+# the offline cell's 7,936 and 14,592), ragged M, the tp 2 shards (Q/K/V
+# and intermediate_dense column-parallel, the other two row-parallel,
+# without bias)
+G1_LAYER = ((768, 768, 3, False, True), (768, 768, 1, False, True),
+            (3072, 768, 1, True, True), (768, 3072, 1, False, True))
+G1_TOKENS = (4352, 7936, 14592)
+G1_CASES = (
+    [(m, *c) for m in G1_TOKENS for c in G1_LAYER]
+    + [(1, 768, 768, 3, False, True), (77, 768, 768, 1, False, True),
+       (1000, 3072, 768, 1, True, True), (4353, 768, 3072, 1, False, True)]
+    + [(1000, 384, 768, 3, False, True), (1000, 1536, 768, 1, True, True),
+       (1000, 768, 384, 1, False, False), (1000, 768, 1536, 1, False, False)])
+G1_ERR_RATIO = 2.0   # G1's worst error against fp64 over cuBLAS FFMA's,
+                     # each the worst over G1_CASES
+G1_EDGE_TOL = 1e-5   # the same error at the edges of the tile
+
+
+def gemm_inputs(M, N, K, n, bias, seed):
+    """x ~ N(0, 1) [M, K]; n weights ~ N(0, 0.02) [N, K] and biases ~ N(0,
+    0.02) (or None), as BERT's initializer draws them: off any grid."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * std
+
+    x = draw(M, K)
+    ws = [draw(N, K, std=0.02) for _ in range(n)]
+    bs = [draw(N, std=0.02) if bias else None for _ in range(n)]
+    return x, ws, bs
+
+
+def gemm_error(y, x, w, b, gelu) -> float:
+    """max |y - Y| / (|x| |w|^T + |b|) with Y the fp64 product (gelu'd when
+    ``gelu``): the error of each output over the scale of its sum."""
+    import torch.nn.functional as F
+
+    xd, wd = x.double(), w.double()
+    bd = None if b is None else b.double()
+    ref = F.linear(xd, wd, bd)
+    if gelu:
+        ref = F.gelu(ref)
+    scale = F.linear(xd.abs(), wd.abs(), None if bd is None else bd.abs())
+    return ((y.double() - ref).abs() / scale).max().item()
+
+
+def check_gemm(gemm):
+    """G1 against fp64 and cuBLAS's FFMA SGEMM (``F.linear``, TF32 off) on
+    the same inputs, the edges of its tile, a captured and replayed launch,
+    the autograd path and the inputs it refuses. Returns (G1's worst error
+    over FFMA's, G1's worst error, worst |G1 - F.linear|)."""
+    import torch
+    import torch.nn.functional as F
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    worst_err = worst_ffma = worst_diff = 0.0
+    for i, (M, N, K, n, gelu, bias) in enumerate(G1_CASES):
+        x, ws, bs = gemm_inputs(M, N, K, n, bias, 100 + i)
+        before = gemm.linear_cuda.launches
+        ys = gemm.linear_many(x, ws, bs, gelu)
+        torch.cuda.synchronize()
+        if gemm.linear_cuda.launches - before != 1:
+            raise AssertionError(f"G1 at {(M, N, K, n)}: "
+                                 f"{gemm.linear_cuda.launches - before} "
+                                 "launches, expected 1")
+        err = ffma = diff = 0.0
+        for y, w, b in zip(ys, ws, bs):
+            lib = gemm.linear_plain(x, w, b, gelu)
+            err = max(err, gemm_error(y, x, w, b, gelu))
+            ffma = max(ffma, gemm_error(lib, x, w, b, gelu))
+            diff = max(diff, (y - lib).abs().max().item())
+        worst_err, worst_ffma = max(worst_err, err), max(worst_ffma, ffma)
+        worst_diff = max(worst_diff, diff)
+        log(f"  G1 {(M, N, K)} x{n}{' gelu' if gelu else ''}"
+            f"{'' if bias else ' no bias'}: error {err:.3e}, FFMA {ffma:.3e} ({err / ffma:.2f} x), max "
+            f"|G1 - F.linear| {diff:.3e}")
+    ratio = worst_err / worst_ffma
+    if not ratio <= G1_ERR_RATIO:
+        raise AssertionError(f"G1's worst error {worst_err:.3e} is over "
+                             f"{G1_ERR_RATIO} x FFMA's {worst_ffma:.3e}")
+    # the edges of the tile: one row, a ragged second tile, one stage of K
+    for i, (M, N, K) in enumerate(((1, 128, 64), (130, 256, 128),
+                                   (130, 128, 32))):
+        x, ws, bs = gemm_inputs(M, N, K, 2, True, 200 + i)
+        ys = gemm.linear_cuda(x, ws, bs, True)
+        err = max(gemm_error(y, x, w, b, True) for y, w, b in zip(ys, ws, bs))
+        log(f"  G1 at {(M, N, K)} x2 gelu: error {err:.3e} "
+            f"(tol {G1_EDGE_TOL:g})")
+        if not err <= G1_EDGE_TOL:
+            raise AssertionError(f"G1 at {(M, N, K)}: error {err:.3e}")
+    # a launch captured in a CUDA graph, replayed on new inputs
+    x, ws, bs = gemm_inputs(4352, 768, 768, 3, True, 300)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gemm.linear_many(x, ws, bs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = gemm.linear_many(x, ws, bs)
+    x.copy_(gemm_inputs(4352, 768, 768, 1, False, 301)[0])
+    graph.replay()
+    eager = gemm.linear_many(x, ws, bs)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(captured, eager)):
+        raise AssertionError("G1: a graph replay differs from the eager launch")
+    del graph
+    # the autograd path (LOCK_BERT off): kernel forward, plain backward
+    x, [w], [b] = gemm_inputs(1000, 768, 3072, 1, True, 400)
+    r = torch.randn(1000, 768, device="cuda")
+    grads = []
+    for fn in (gemm.linear, F.linear):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+        (fn(*leaves) * r).sum().backward()
+        grads.append([t.grad for t in leaves])
+    gdiff = max(((a - c).abs().max() / c.abs().max()).item()
+                for a, c in zip(*grads))
+    log(f"  G1 autograd at (1000, 768, 3072): max |grad - F.linear's| over "
+        f"its largest {gdiff:.3e} (tol {G1_EDGE_TOL:g})")
+    if not gdiff <= G1_EDGE_TOL:
+        raise AssertionError("G1's autograd path disagrees with F.linear's")
+    # what it refuses
+    x, [w], [b] = gemm_inputs(64, 128, 128, 1, True, 500)
+    for label, args in (
+            ("bf16", (x.bfloat16(), [w.bfloat16()], [b.bfloat16()])),
+            ("non-contiguous x", (x.t(), [w], [b])),
+            ("K 100", (x[:, :100].contiguous(), [w[:, :100].contiguous()],
+                       [b])),
+            ("N 100", (x, [w[:100].contiguous()], [b[:100].contiguous()])),
+            ("CPU weight", (x, [w.cpu()], [b]))):
+        try:
+            gemm.linear_cuda(*args)
+        except ValueError:
+            continue
+        raise AssertionError(f"G1 took {label}")
+    log(f"phase 1 (h) ok: G1 worst error {worst_err:.3e}, FFMA's "
+        f"{worst_ffma:.3e} ({ratio:.2f} x, limit {G1_ERR_RATIO}), worst "
+        f"|G1 - F.linear| {worst_diff:.3e}")
+    return ratio, worst_err, worst_diff
+
+
+def time_gemm(gemm, M=G1_TOKENS[0]):
+    """G1's launches of one encoder layer at M tokens (Q/K/V joined,
+    attention output, intermediate with gelu, output), each timed hot in L2
+    as the layer meets them, beside the plain version (F.linear, then the
+    gelu), cuBLAS's FFMA F.linear (``library_ms``, a yardstick the port
+    does not call) and the bound (2 M N K per product over 3xTF32's 165
+    TFLOP/s). Returns the layer's sums as ``timed`` does."""
+    import torch.nn.functional as F
+
+    total = [0.0] * 4
+    for i, (N, K, n, gelu, bias) in enumerate(G1_LAYER):
+        x, ws, bs = gemm_inputs(M, N, K, n, bias, 600 + i)
+        ms = cuda_ms(lambda: gemm.linear_cuda(x, ws, bs, gelu))
+        plain = cuda_ms(lambda: [gemm.linear_plain(x, w, b, gelu)
+                                 for w, b in zip(ws, bs)])
+        lib = cuda_ms(lambda: [F.linear(x, w, b) for w, b in zip(ws, bs)])
+        flops = 2.0 * M * N * K * n
+        bound_ms = bound(4.0 * (M * K + n * (N * K + M * N)), flops)[0]
+        log(f"  G1 at {(M, N, K)} x{n}{' gelu' if gelu else ''}: "
+            f"{ms:.4f} ms ({flops / ms / 1e9:.1f} "
+            f"TFLOP/s), plain {plain:.4f} ms, FFMA F.linear {lib:.4f} ms "
+            f"({flops / lib / 1e9:.1f} TFLOP/s); bound {bound_ms:.4f} ms: G1 "
+            f"at {100 * bound_ms / ms:.1f}% of it")
+        for j, v in enumerate((ms, plain, lib, bound_ms)):
+            total[j] += v
+    ms, plain, lib, bound_ms = total
+    return (ms, plain, lib, bound_ms, "operations", ms)
 
 
 def _letters(n: int) -> str:
@@ -3153,17 +3344,20 @@ def run(phase13=None, skip=()) -> int:
 
     from ruart_tpu_torch.models.bert.model import BertSelfAttention
     from ruart_tpu_torch.ops import attention as att
+    from ruart_tpu_torch.ops import gemm
 
     def reset_counts():
         att.sharded_fused_attention.launches = 0
         att.attention_rows_cuda.launches = 0
         att.attention_rows_cuda.bf16_launches = 0
         att.flash_attention_cuda.launches = 0
+        gemm.linear_cuda.launches = 0
 
     def counts():
         return {"K1": att.attention_rows_cuda.launches,
                 "K1 bf16": att.attention_rows_cuda.bf16_launches,
-                "K3": att.flash_attention_cuda.launches}
+                "K3": att.flash_attention_cuda.launches,
+                "G1": gemm.linear_cuda.launches}
 
     driven = []  # phases 8 and 9: (path, launches, batches or steps)
 
@@ -3185,6 +3379,11 @@ def run(phase13=None, skip=()) -> int:
         if not (ok and b16 == (k1 if bf16 else 0)):
             raise AssertionError(f"{label} launched K1 {k1} times ({b16} in "
                                  f"bf16) for {n} batches or steps")
+        # G1 takes the fp32 encoder's Linears only: none under BF16 or
+        # INT8_BERT
+        if (bf16 or "int8" in label.lower()) and launched["G1"]:
+            raise AssertionError(f"{label} launched G1 {launched['G1']} "
+                                 "times")
         return out
 
     t_start = time.time()
@@ -3213,6 +3412,12 @@ def run(phase13=None, skip=()) -> int:
         errs = check_kernel(att)
         race_check(att)
         sanitize(report)
+        g1_errs = check_gemm(gemm)
+        g1 = time_gemm(gemm)
+        log(f"G1, one encoder layer's 4 launches at {G1_TOKENS[0]} tokens, "
+            f"hot in L2: kernel {g1[0]:.4f} ms, plain {g1[1]:.4f} ms, FFMA "
+            f"F.linear {g1[2]:.4f} ms; bound {g1[3]:.4f} ms (operations): "
+            f"kernel at {100 * g1[3] / g1[0]:.1f}% of its bound")
         log(f"phase 1 ok: worst fp32 error K1 {errs['K1']:.3e}, K2 {errs['K2']:.3e}")
 
     # -- phase 2: serve at full width (main path 1) ---------------------------
@@ -3247,6 +3452,10 @@ def run(phase13=None, skip=()) -> int:
     if serve_counts["K1"] < 12 * n_batches:
         raise AssertionError(f"attention kernel launched {serve_counts['K1']} "
                              f"times, expected >= {12 * n_batches}")
+    # G1: Q/K/V joined, attention output, intermediate, output: 4 a layer
+    if serve_counts["G1"] != 4 * serve_counts["K1"]:
+        raise AssertionError(f"G1 launched {serve_counts['G1']} times for "
+                             f"{serve_counts['K1']} encoder layers")
     t0 = time.time()
     again = engine.predict(reqs)
     torch.cuda.synchronize()
@@ -3544,6 +3753,13 @@ def run(phase13=None, skip=()) -> int:
         entry("sharded_fused_attention (K1 on a tp shard's local heads)",
               "ruart_tpu/ops/attention.py:314", sharded_launches,
               sharded_err, k1_shards[6]),
+        # no TPU kernel: the JAX package leaves these products to XLA
+        dict(entry("linear (G1, the encoder's six Linears in fp32)",
+                   "none (XLA's dot in ruart_tpu/models/bert/model.py)",
+                   main_path["G1"], g1_errs[2], g1,
+                   source="ruart_tpu_torch/csrc/gemm_tf32x3.cu"),
+             # the worst error against fp64 over the sum's scale |x||w|^T
+             max_scaled_err=g1_errs[1]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

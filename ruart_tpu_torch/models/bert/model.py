@@ -12,6 +12,11 @@ The 2018 BERT architecture the reference vendors
   version (``attention_impl='plain'`` forces the plain version anywhere);
 * ``stop_layer_gradients`` (LOCK_BERT) cuts every layer's output from the
   graph while the combine weights stay in it;
+* the six projection/FFN layers of each encoder layer are
+  :class:`EncoderLinear`: on fp32 inputs their products go to ``ops.gemm``
+  (a hand-written 3xTF32 kernel for CUDA tensors, ``F.linear`` for CPU
+  ones), Q, K and V in one launch and ``intermediate_dense``'s gelu in its
+  epilogue; the pooler stays a plain :class:`Linear`;
 * ``quant='int8'`` builds the six projection/FFN layers of each encoder
   layer as weight-only int8 ``ops.quant.QuantLinear`` (INT8_BERT);
 * ``dtype='bfloat16'`` (BF16) computes the encoder layers in bf16 as the
@@ -58,6 +63,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ruart_tpu_torch.models.bert.config import BertConfig
+from ruart_tpu_torch.ops import gemm
 from ruart_tpu_torch.ops.attention import (
     attention_rows_plain,
     fused_attention,
@@ -100,7 +106,26 @@ class Linear(nn.Linear):
         return F.linear(x, *self.typed(x))
 
 
-class RowParallelLinear(Linear):
+class EncoderLinear(Linear):
+    """One of the six projection/FFN Linears of an encoder layer. On an
+    fp32 input the product goes to ``ops.gemm`` (the 3xTF32 kernel for a
+    CUDA tensor, ``F.linear`` for a CPU one); a bf16 input takes
+    :class:`Linear`'s path."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32:
+            return gemm.linear(x, self.weight, self.bias)
+        return super().forward(x)
+
+    def forward_gelu(self, x: torch.Tensor) -> torch.Tensor:
+        """:func:`gelu` of :meth:`forward`; in fp32 the kernel applies it
+        in its epilogue."""
+        if x.dtype == torch.float32:
+            return gemm.linear(x, self.weight, self.bias, gelu=True)
+        return gelu(super().forward(x))
+
+
+class RowParallelLinear(EncoderLinear):
     """This rank's input-feature shard of a Linear: the partial product,
     summed over the tp group in its output type, then the (replicated)
     bias added once."""
@@ -111,7 +136,9 @@ class RowParallelLinear(Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w, b = self.typed(x)
-        return all_reduce(F.linear(x, w), self.group) + b
+        part = (gemm.linear(x, w) if x.dtype == torch.float32
+                else F.linear(x, w))
+        return all_reduce(part, self.group) + b
 
 
 class LayerNorm(nn.LayerNorm):
@@ -134,9 +161,10 @@ def _sharded_dim(c: BertConfig, name: str, shape) -> Optional[int]:
 
 def _dense(c: BertConfig, in_features: int, out_features: int,
            name: str = "") -> nn.Module:
-    """Linear factory for the encoder's projection/FFN layers: :class:`Linear`
-    normally, weight-only-int8 :class:`QuantLinear` when ``c.quant ==
-    'int8'`` (weights converted by ``ops.quant.quantize_bert_params``).
+    """Linear factory for the encoder's projection/FFN layers:
+    :class:`EncoderLinear` normally, weight-only-int8 :class:`QuantLinear`
+    when ``c.quant == 'int8'`` (weights converted by
+    ``ops.quant.quantize_bert_params``).
     Under a mesh, the layer ``name`` (e.g. ``layer_0.output_dense``) holds
     its tp shard: its output features (column-parallel) or its input
     features (:class:`RowParallelLinear`). An int8 layer stays whole on
@@ -147,12 +175,13 @@ def _dense(c: BertConfig, in_features: int, out_features: int,
         return QuantLinear(in_features, out_features)
     dim = _sharded_dim(c, name + ".weight", (out_features, in_features))
     if dim == 0:
-        return mark_sharded(Linear(in_features, out_features // c.mesh.tp),
-                            weight=0, bias=0)
+        return mark_sharded(
+            EncoderLinear(in_features, out_features // c.mesh.tp),
+            weight=0, bias=0)
     if dim == 1:
         return mark_sharded(RowParallelLinear(
             in_features // c.mesh.tp, out_features, c.mesh.tp_group), weight=1)
-    return Linear(in_features, out_features)
+    return EncoderLinear(in_features, out_features)
 
 
 class BertEmbeddings(nn.Module):
@@ -205,13 +234,24 @@ class BertSelfAttention(nn.Module):
         q/k/v and the output in the compute type of ``hidden``. Under a
         mesh that shards the heads, q/k/v and the output hold this rank's
         heads."""
-        q, k, v = self.query(hidden), self.key(hidden), self.value(hidden)
+        q, k, v = self.project(hidden)
         plain = self.impl == "plain"
         if self.mesh is not None:
             return sharded_fused_attention(q, k, v, bias, self.heads,
                                            self.mesh, plain=plain)
         attend = attention_rows_plain if plain else fused_attention
         return attend(q, k, v, bias, self.heads)
+
+    def project(self, hidden):
+        """(q, k, v): on an fp32 input one ``ops.gemm`` call over the three
+        weights (one kernel launch on a card), each projection alone
+        otherwise (bf16, int8)."""
+        mods = (self.query, self.key, self.value)
+        if hidden.dtype == torch.float32 and all(
+                type(m) is EncoderLinear for m in mods):
+            return gemm.linear_many(hidden, [m.weight for m in mods],
+                                    [m.bias for m in mods])
+        return tuple(m(hidden) for m in mods)
 
 
 class BertLayer(nn.Module):
@@ -231,7 +271,9 @@ class BertLayer(nn.Module):
     def forward(self, hidden, bias):
         attn = self.attention_output_dense(self.attention_self(hidden, bias))
         hidden = self.attention_output_LayerNorm(attn + hidden)
-        inter = gelu(self.intermediate_dense(hidden))
+        dense = self.intermediate_dense
+        inter = (dense.forward_gelu(hidden) if type(dense) is EncoderLinear
+                 else gelu(dense(hidden)))
         return self.output_LayerNorm(self.output_dense(inter) + hidden)
 
 
@@ -322,8 +364,8 @@ class BertModel(nn.Module):
 
     @torch.no_grad()
     def cache_compute_weights(self) -> "BertModel":
-        """Give each projection/FFN :class:`Linear` one copy of its weight
-        and bias in the compute type, made now, so that a bf16 forward
+        """Give each projection/FFN :class:`EncoderLinear` one copy of its
+        weight and bias in the compute type, made now, so that a bf16 forward
         casts nothing per call (72 Linears at BERT-base: 144 casts per
         forward saved). For frozen weights only — an engine's: the copy does
         not follow later changes to the parameters. A no-op in fp32."""

@@ -14,9 +14,11 @@ for sm_90a hold the kernels, by input type:
   one block per (row, head, query tile).
 
 Each source states what bounds its kernel on an H100 and how its design
-answers that. Both are compiled with ``nvcc`` at first use, in parallel,
+answers that. They are compiled with ``nvcc`` at first use, in parallel,
 into one library in ``ruart_tpu_torch/_build/`` and loaded with ``ctypes``
-(a plain C interface; no PyTorch headers, so the build takes seconds).
+(a plain C interface; no PyTorch headers, so the build takes seconds),
+together with ``csrc/gemm_tf32x3.cu``, the encoder's fp32 Linears
+(``ops/gemm.py``).
 
 Model layout (K1/K2): q/k/v are [B, L, H*dh]; ``bias`` is a float32 [B, L]
 additive key bias or a [B, L, L] per-query bias (the packed segment mask).
@@ -71,11 +73,14 @@ import tempfile
 import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "attention.cu", _PKG / "csrc" / "attention_bf16.cu")
+SOURCES = (_PKG / "csrc" / "attention.cu", _PKG / "csrc" / "attention_bf16.cu",
+           _PKG / "csrc" / "gemm_tf32x3.cu")
 BUILD_DIR = _PKG / "_build"
 LIBRARY = BUILD_DIR / "libruart_attention.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+# the GEMM builds its TMA descriptors with libcuda's cuTensorMapEncodeTiled
+LINK_FLAGS = ("-lcuda",)
 MAX_LEN = 512
 MAX_HEAD_DIM = 128
 
@@ -153,7 +158,8 @@ def build_kernel(force: bool = False) -> str:
         compiles = [[_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj,
                      str(src)] for obj, src in zip(objects, SOURCES)]
         library = temp(".so")
-        link = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", library, *objects]
+        link = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", library, *objects,
+                *LINK_FLAGS]
         reports = []
         for cmd, (rc, out) in zip(compiles, _run(compiles)):
             if rc != 0:
@@ -495,15 +501,23 @@ def sharded_fused_attention_global(
     return out
 
 
-# Every launch counter of this module. A CUDA graph launches its kernels at
-# replay, where no wrapper runs: ``utils.graphs`` reads the counters around
-# a capture and adds the difference back at each replay.
-_COUNTERS = (
+# Every launch counter of the port's kernels: this module's, and those
+# other modules add with :func:`register_counter` (``ops.gemm``). A CUDA
+# graph launches its kernels at replay, where no wrapper runs:
+# ``utils.graphs`` reads the counters around a capture and adds the
+# difference back at each replay.
+_COUNTERS = [
     (attention_rows_cuda, "launches"),
     (attention_rows_cuda, "bf16_launches"),
     (flash_attention_cuda, "launches"),
     (sharded_fused_attention, "launches"),
-)
+]
+
+
+def register_counter(fn, name: str) -> None:
+    """Add the launch counter ``fn.<name>`` to :func:`launch_counts`."""
+    if (fn, name) not in _COUNTERS:
+        _COUNTERS.append((fn, name))
 
 
 def launch_counts() -> tuple:

@@ -26,6 +26,7 @@ def test_scan_sees_every_native_source():
     names = {p.relative_to(REPO).as_posix() for p in NATIVE}
     assert {"ruart_tpu_torch/csrc/attention.cu",
             "ruart_tpu_torch/csrc/attention_bf16.cu",
+            "ruart_tpu_torch/csrc/gemm_tf32x3.cu",
             "ruart_tpu_torch/native/phoc.cc",
             "ruart_tpu_torch/native/fastcollate.cc"} <= names
     assert {p.resolve() for p in att.SOURCES} <= {p.resolve() for p in NATIVE}
@@ -92,8 +93,9 @@ def test_build_compiles_each_source_and_links_one_library(fake_build):
     assert not att.stale() and "-gencode" in link
 
 
-@pytest.mark.parametrize("touched", [0, 1], ids=["attention.cu",
-                                                 "attention_bf16.cu"])
+@pytest.mark.parametrize("touched", [0, 1, 2], ids=["attention.cu",
+                                                    "attention_bf16.cu",
+                                                    "gemm_tf32x3.cu"])
 def test_touching_either_source_rebuilds(fake_build, touched):
     att.build_kernel()
     for src in att.SOURCES:
@@ -102,7 +104,8 @@ def test_touching_either_source_rebuilds(fake_build, touched):
     assert att.build_kernel() == "" and fake_build == []  # up to date
     os.utime(att.SOURCES[touched])  # now: newer than the library
     assert att.stale()
-    assert att.build_kernel() != "" and len(fake_build) == 3
+    # one compile per source and the link
+    assert att.build_kernel() != "" and len(fake_build) == len(att.SOURCES) + 1
 
 
 def test_failed_compile_raises_naming_the_source(fake_build, monkeypatch):

@@ -163,7 +163,7 @@ def test_replays_count_as_eager_launches(monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(last, want))
     assert torch.equal(got[0][0], step(*runs[0], None)[0])
     (entry,) = graphed.graphs.values()
-    assert entry.launches == (3, 0, 0, 0)
+    assert entry.launches == (3,) + (0,) * (len(att.launch_counts()) - 1)
     graphed(*_blocks()[:1], {"ids": torch.zeros(2, 5, dtype=torch.long)},
             None)  # another signature, another graph
     assert len(graphed) == 2

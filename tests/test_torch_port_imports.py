@@ -58,6 +58,7 @@ def test_scan_sees_the_package():
     native = {p.relative_to(REPO).as_posix() for p in NATIVE}
     assert native == {"ruart_tpu_torch/csrc/attention.cu",
                       "ruart_tpu_torch/csrc/attention_bf16.cu",
+                      "ruart_tpu_torch/csrc/gemm_tf32x3.cu",
                       "ruart_tpu_torch/native/phoc.cc",
                       "ruart_tpu_torch/native/fastcollate.cc"}
 

@@ -46,9 +46,10 @@ def test_dispatch_widths_match_the_sources():
 
 def test_cases_reach_every_kernel_of_the_library():
     """24 bf16 kernels (6 widths x 2 bias forms x one or more key tiles),
-    8 fp32 K1/K2 kernels and 4 K3 kernels on bf16 inputs: 36."""
+    8 fp32 K1/K2 kernels, 4 K3 kernels on bf16 inputs and G1: 37."""
     names = {ks.kernel_of(c) for c in ks.cases()}
-    assert len(names) == 36
+    assert len(names) == 37
+    assert "gemm_tf32x3_kernel" in names
     assert sum(n.startswith("attention_bf16_kernel<") for n in names) == 24
     assert sum(n.startswith("attention_kernel<float,") for n in names) == 8
     assert sum(n.startswith("attention_kernel<__nv_bfloat16,")

@@ -9,8 +9,8 @@ attach, on one CUDA card.
     compute-sanitizer --tool racecheck --error-exitcode 1 \\
         python3 tools/torch_kernel_sanitize.py --race
 
-The library (``ruart_tpu_torch/csrc/attention.cu`` and
-``attention_bf16.cu``, built by ``ops.attention.build_kernel``) holds one
+The library (``ruart_tpu_torch/csrc/attention.cu``, ``attention_bf16.cu``
+and ``gemm_tf32x3.cu``, built by ``ops.attention.build_kernel``) holds one
 kernel per template instance. The sweep (:func:`cases`) launches each at
 least once through its wrapper:
 
@@ -24,7 +24,10 @@ least once through its wrapper:
   and 4-byte staging paths);
 * K3 (``flash_attention_cuda``) in fp32 and bf16 at D 8, 40, 72 and 104,
   once through head-major strides of a model-layout tensor;
-* ``sharded_fused_attention`` on a tp-2 shard of 6 heads.
+* ``sharded_fused_attention`` on a tp-2 shard of 6 heads;
+* G1 (``ops.gemm.linear_cuda``, ``csrc/gemm_tf32x3.cu``) with one to three
+  weights, with and without bias and gelu, M off its tiles (1, 130, 200)
+  and K of one stage (32) to six.
 
 Every input is a copy between two GUARD_BYTES bands of NaN, so a read past
 either end that reaches an output makes it NaN; every output (but the
@@ -61,6 +64,9 @@ HEAD_WIDTHS = (8, 24, 40, 64, 72, 104)
 LENGTHS = (1, 16, 31, 32, 33, 64, 65, 512)
 Z_SPLIT_ROWS = 70_000      # one head of dh 16 at L 16: one query tile a row
 FLASH_WIDTHS = (8, 40, 72, 104)
+# G1 (M, N, K, weights, gelu, bias)
+GEMM_CASES = ((130, 256, 128, 3, True, True), (1, 128, 64, 1, False, False),
+              (200, 384, 192, 2, False, True), (130, 128, 32, 1, True, True))
 # rows, L, heads, dh, segment bias: chip_smoke.RACE_SHAPES
 RACE_SHAPES = ((136, 32, 12, 64, True), (8, 512, 12, 64, True))
 
@@ -96,6 +102,9 @@ def cases(race: bool = False):
                         strided=True))
     out.append(dict(op="sharded", dtype="float32", B=8, L=32, H=12, dh=64,
                     bias_2d=True, unaligned=False))
+    for M, N, K, n, gelu, bias in GEMM_CASES:
+        out.append(dict(op="gemm", dtype="float32", M=M, N=N, K=K, n=n,
+                        gelu=gelu, bias=bias))
     return out
 
 
@@ -104,6 +113,8 @@ def kernel_of(case) -> str:
     names it: the dispatch of ``attention.cu`` (fp32 K1/K2, K3: dh padded to
     a multiple of 32) and ``attention_bf16.cu`` (bf16 K1/K2: dh padded to
     16, 32, 48, 64, 96 or 128; one key tile up to L 32)."""
+    if case["op"] == "gemm":
+        return "gemm_tf32x3_kernel"
     if case["op"] == "flash":
         dp = -(-case["D"] // 32) * 32
         t = "float" if case["dtype"] == "float32" else "__nv_bfloat16"
@@ -181,6 +192,21 @@ def launch(att, case, seed):
 
     dtype = getattr(torch, case["dtype"])
     tol = cs.TOL[case["dtype"]]
+    if case["op"] == "gemm":
+        from ruart_tpu_torch.ops import gemm
+
+        M, N, K, n = case["M"], case["N"], case["K"], case["n"]
+        x, ws, bs = cs.gemm_inputs(M, N, K, n, case["bias"], seed)
+        want = [gemm.linear_plain(x, w, b, case["gelu"])
+                for w, b in zip(ws, bs)]
+        outs = [GuardedOut((M, N), torch.float32) for _ in range(n)]
+        gemm.linear_cuda(guarded(x), [guarded(w) for w in ws],
+                         [None if b is None else guarded(b) for b in bs],
+                         case["gelu"], outs=[o.tensor for o in outs])
+        torch.cuda.synchronize()
+        err = max((o.tensor - w).abs().max().item()
+                  for o, w in zip(outs, want))
+        return err, tol, all(o.guards_intact() for o in outs)
     if case["op"] == "flash":
         B, H, L, D = case["B"], case["H"], case["L"], case["D"]
         q, k, v, bias = cs.flash_inputs(B, H, L, D, dtype, seed)
