@@ -52,6 +52,26 @@ non-zero when there is none, or when any phase fails:
    later phases counts G1's launches beside K1's: 4 a layer in fp32 (the
    serving run of phase 2 is held to it), none under ``BF16`` or
    ``INT8_BERT``.
+   (i) The Moonlight encoder's kernels (``csrc/moe_bf16.cu``: route,
+   permute, the grouped gate/up and down products, combine; the bf16
+   attention at 192-wide query/key and 128-wide value heads) against
+   their plain twins on the same inputs: the training cell's 4,352 tokens
+   at top 6 of 64 experts of 2,048 x 1,408, small ragged shapes, each
+   straight and skewed (experts with no rows, one with most): the same
+   experts, counts and routed-row counter, weights within 1e-6, the
+   permutation consistent, the products and the combine within 1e-2 of
+   their scale; the layer replayed from a CUDA graph on new inputs
+   byte-equal to its eager run; the attention at L 1 to 512, both bias
+   forms, within 2e-2. Then one expert layer and the attention at the
+   training shapes, timed beside their bounds and plain twins. Then RUArt
+   over the Moonlight encoder at its published widths (``LLM_ENCODER``,
+   ``BF16``) through ``make_eval_step`` and ``evaluate`` on 48 items:
+   graph replays equal to the capture pass, the eager step's loss within
+   1e-5, the routed-row counter at 6 routes a token in all 26 expert
+   layers, and each pass's launches counted (set to 0 just before it,
+   read just after): per encoder call 26 route, 26 permute, 52 grouped
+   GEMM and 26 combine launches and 27 of the 192/128 attention, printed
+   in the kernels line.
 2. Serve 40 synthetic requests through ``InferenceEngine.predict`` at the
    flagship width (``stvqa_config(vocab_size=5000, batch_size=16)``,
    BERT-base, random weights from a seeded ``torch.Generator``): three
@@ -277,6 +297,7 @@ and, last, ``{"ok": true, "device": {...}}``.
 import collections
 import contextlib
 import faulthandler
+import gc
 import json
 import math
 import os
@@ -1360,6 +1381,338 @@ def time_gemm(gemm, M=G1_TOKENS[0]):
             total[j] += v
     ms, plain, lib, bound_ms = total
     return (ms, plain, lib, bound_ms, "operations", ms)
+
+
+# -- the Moonlight encoder's kernels (csrc/moe_bf16.cu, attention_bf16.cu) --
+
+# (tokens, hidden, expert width, experts, top k): the training cell's 4,352
+# packed tokens at the published widths, then small ragged ones
+MOE_CASES = ((4352, 2048, 1408, 64, 6), (37, 128, 64, 8, 2),
+             (1, 64, 64, 4, 3), (300, 256, 128, 16, 4))
+# rows, L, heads, query/key width, value width: the training cell's packed
+# rows of 32 at the published 16 heads of 192/128
+MLA_SHAPE = (136, 32, 16, 192, 128)
+MLA_LENGTHS = (1, 16, 31, 32, 33, 64, 65, 512)
+
+
+def moe_inputs(T, D, W, E, k, seed, skew):
+    """bf16 tokens N(0, 1), fp32 router logits of a random N(0, 0.02)
+    router, a bf16 correction bias N(0, 0.05), stacked bf16 expert weights
+    N(0, 0.02); with ``skew`` a quarter of the experts get no rows and one
+    expert most of them."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
+
+    x = draw(T, D)
+    logits = x.float() @ draw(E, D, std=0.02, dtype=torch.float32).T
+    if skew:
+        logits[:, : max(1, E // 4)] = -30.0
+        logits[:, E - 1] += 3.0
+    bias = draw(E, std=0.05)
+    return (x, logits, bias, draw(E, 2 * W, D, std=0.02),
+            draw(E, D, W, std=0.02), draw(T, D), draw(T, D))
+
+
+def check_moonlight(att, moe):
+    """The expert layer's kernels against their plain twins (on the same
+    inputs, on the card) at MOE_CASES, straight and skewed (experts with no
+    rows, one with most): the same experts and row counts, weights within
+    1e-6, the permutation consistent, each grouped product and the combine
+    within 1e-2 of the output's scale (bf16 outputs; the plain twin rounds
+    cuBLAS's sums), the routed-row counter; the layer replayed from a CUDA
+    graph byte-equal to its eager run. Then the 192/128 attention against
+    attention_rows_plain at MLA_LENGTHS, both bias forms (2e-2, as K1
+    bf16). Returns (worst MoE error over its scale, worst attention
+    error)."""
+    import torch
+
+    worst = 0.0
+    for i, (T, D, W, E, k) in enumerate(MOE_CASES):
+        for skew in (False, True):
+            x, logits, bias, wgu, wd, shared, res = moe_inputs(
+                T, D, W, E, k, 100 + i, skew)
+            load = torch.zeros(E, dtype=torch.int64, device="cuda")
+            idx, w, counts = moe.route_cuda(logits, bias, k, 2.446, load)
+            pidx, pw, pcounts = moe.route_plain(logits, bias, k, 2.446)
+            same = torch.equal(idx.sort(-1).values, pidx.sort(-1).values)
+            order_k, order_p = idx.sort(-1).indices, pidx.sort(-1).indices
+            werr = (w.gather(1, order_k) - pw.gather(1, order_p)).abs().max()
+            if not (same and torch.equal(counts, pcounts)
+                    and torch.equal(load, pcounts.long())
+                    and werr <= 1e-6 * 2.446):
+                raise AssertionError(f"phase 1 (i): route at {(T, D, E, k)} "
+                                     f"skew {skew}: experts same {same}, "
+                                     f"weight error {float(werr):.3e}")
+            offsets, rows, slot_pos = moe.permute_cuda(idx, counts)
+            want_off = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+            ok = torch.equal(offsets, want_off.int()) and torch.equal(
+                rows[slot_pos.long()].long(),
+                torch.arange(T, device="cuda").repeat_interleave(k))
+            e_of = torch.repeat_interleave(torch.arange(E, device="cuda"),
+                                           counts.long())
+            ok = ok and torch.equal(e_of, idx.reshape(-1)[
+                slot_pos.argsort().long()].long())
+            if not ok:
+                raise AssertionError(f"phase 1 (i): permute at {(T, E, k)} "
+                                     f"skew {skew} is inconsistent")
+            h = moe.grouped_gemm_cuda(x, rows, wgu, offsets, True)
+            errs = [(h, moe.grouped_gemm_plain(x, rows, wgu, offsets, True))]
+            y = moe.grouped_gemm_cuda(h, None, wd, offsets, False)
+            errs.append((y, moe.grouped_gemm_plain(h, None, wd, offsets,
+                                                   False)))
+            out = moe.combine_cuda(y, slot_pos, w, shared, res)
+            errs.append((out, moe.combine_plain(y, slot_pos, w, shared, res)))
+            for j, (got, want) in enumerate(errs):
+                scale = want.float().abs().max().clamp(min=1e-30)
+                err = float((got.float() - want.float()).abs().max() / scale)
+                worst = max(worst, err)
+                if not err <= 1e-2:
+                    raise AssertionError(
+                        f"phase 1 (i): {('gate/up', 'down', 'combine')[j]} at "
+                        f"{(T, D, W, E, k)} skew {skew}: error {err:.3e} of "
+                        f"the scale")
+            log(f"phase 1 (i): experts at {(T, D, W, E, k)} skew {skew}: "
+                f"rows per expert {int(counts.min())}-{int(counts.max())}, "
+                f"errors within {worst:.2e} of the scale")
+    # the layer inside a CUDA graph: replayed on new inputs = eager
+    T, D, W, E, k = MOE_CASES[0]
+    x, logits, bias, wgu, wd, shared, res = moe_inputs(T, D, W, E, k, 7, False)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        moe.experts(x, logits, bias, k, 2.446, wgu, wd, shared, res)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, _ = moe.experts(x, logits, bias, k, 2.446, wgu, wd, shared, res)
+    x2, logits2, *_ = moe_inputs(T, D, W, E, k, 8, True)
+    x.copy_(x2)
+    logits.copy_(logits2)
+    graph.replay()
+    torch.cuda.synchronize()
+    want, _ = moe.experts(x, logits, bias, k, 2.446, wgu, wd, shared, res)
+    if not torch.equal(got, want):
+        raise AssertionError("phase 1 (i): the expert layer replayed from a "
+                             "graph differs from its eager run")
+    del graph
+    # the latent attention's widths
+    R, L0, H, dq, dv = MLA_SHAPE
+    aworst = 0.0
+    for L in MLA_LENGTHS:
+        for bias_2d in (True, False):
+            B = 2 if L == 512 else 3
+            q, kk, _, b = make_inputs(B, L, H, dq, torch.bfloat16, bias_2d,
+                                      L + 31 * bias_2d)
+            v = make_inputs(B, L, H, dv, torch.bfloat16, bias_2d, L + 7)[2]
+            scale = dq ** -0.5
+            got = att.attention_rows_cuda(q, kk, v, b, H, scale=scale)
+            want = att.attention_rows_plain(q, kk, v, b, H, scale=scale)
+            err = float((got.float() - want.float()).abs().max())
+            aworst = max(aworst, err)
+            if not err <= TOL["bfloat16"]:
+                raise AssertionError(f"phase 1 (i): 192/128 attention at L "
+                                     f"{L} bias_2d {bias_2d}: error {err:.3e}")
+    log(f"phase 1 (i) ok: expert kernels within {worst:.2e} of the scale, "
+        f"192/128 attention within {aworst:.2e}; the layer replays from a "
+        "graph byte-equal")
+    return worst, aworst
+
+
+def time_moonlight(att, moe):
+    """Device ms (graph replays, inputs hot in L2 as the layer finds them)
+    at the training cell's shapes: the grouped gate/up and down products of
+    one layer beside their bound (max(bytes / 3.35 TB/s, FLOPs / 989
+    TFLOP/s): every expert's weights and the rows read once, the output
+    written once) and the plain twin (cuBLAS per expert, host loop); route,
+    permute and combine; the 192/128 attention at MLA_SHAPE beside its
+    bound and its plain version."""
+    import torch
+
+    T, D, W, E, k = MOE_CASES[0]
+    x, logits, bias, wgu, wd, shared, res = moe_inputs(T, D, W, E, k, 9, False)
+    idx, w, counts = moe.route_cuda(logits, bias, k, 2.446)
+    offsets, rows, slot_pos = moe.permute_cuda(idx, counts)
+    h = moe.grouped_gemm_cuda(x, rows, wgu, offsets, True)
+    y = moe.grouped_gemm_cuda(h, None, wd, offsets, False)
+    M = T * k
+    out = {}
+
+    def graph_ms(fn, iters=20):
+        return cold_ms(lambda: fn(), [()], iters)
+
+    out["gate_up"] = graph_ms(lambda: moe.grouped_gemm_cuda(
+        x, rows, wgu, offsets, True))
+    out["down"] = graph_ms(lambda: moe.grouped_gemm_cuda(
+        h, None, wd, offsets, False))
+    out["route"] = graph_ms(lambda: moe.route_cuda(logits, bias, k, 2.446))
+    out["permute"] = graph_ms(lambda: moe.permute_cuda(idx, counts))
+    out["combine"] = graph_ms(lambda: moe.combine_cuda(y, slot_pos, w,
+                                                       shared, res))
+    plain = cuda_ms(lambda: moe.grouped_gemm_plain(x, rows, wgu, offsets,
+                                                   True), iters=5, warmup=1)
+    plain += cuda_ms(lambda: moe.grouped_gemm_plain(h, None, wd, offsets,
+                                                    False), iters=5, warmup=1)
+    flops = 2.0 * M * (2 * W) * D + 2.0 * M * D * W
+    nbytes = 2.0 * (E * 2 * W * D + M * D + M * W) + 2.0 * (
+        E * D * W + M * W + M * D)
+    bound_ms = 1e3 * max(nbytes / H100_BYTES_PER_S,
+                         flops / H100_BF16_FLOP_PER_S)
+    gemm_ms = out["gate_up"] + out["down"]
+    log(f"phase 1 (i): one expert layer at {T} tokens x top {k} of {E}: "
+        f"grouped gate/up {out['gate_up']:.4f} ms, down {out['down']:.4f} ms "
+        f"({flops / gemm_ms / 1e9:.1f} TFLOP/s); bound {bound_ms:.4f} ms: "
+        f"{100 * bound_ms / gemm_ms:.1f}% of it; plain twin {plain:.4f} ms; "
+        f"route {out['route']:.4f}, permute {out['permute']:.4f}, combine "
+        f"{out['combine']:.4f} ms")
+    R, L, H, dq, dv = MLA_SHAPE
+    q, kk, _, b = make_inputs(R, L, H, dq, torch.bfloat16, True, 5)
+    v = make_inputs(R, L, H, dv, torch.bfloat16, True, 6)[2]
+    scale = dq ** -0.5
+    mla_ms = graph_ms(lambda: att.attention_rows_cuda(q, kk, v, b, H,
+                                                      scale=scale))
+    mla_plain = graph_ms(lambda: att.attention_rows_plain(q, kk, v, b, H,
+                                                          scale=scale))
+    mflops = 2.0 * R * L * L * H * (dq + dv)
+    mbytes = 2.0 * R * L * H * (2 * dq + 2 * dv) + 4.0 * R * L * L
+    mbound = 1e3 * max(mbytes / H100_BYTES_PER_S,
+                       mflops / H100_BF16_FLOP_PER_S)
+    log(f"phase 1 (i): 192/128 attention at {MLA_SHAPE}: kernel "
+        f"{mla_ms:.4f} ms, plain {mla_plain:.4f} ms; bound {mbound:.4f} ms "
+        f"(bytes): {100 * mbound / mla_ms:.1f}% of it")
+    return dict(out, plain=plain, bound_ms=bound_ms, mla_ms=mla_ms,
+                mla_plain=mla_plain, mla_bound=mbound)
+
+
+def moonlight_evaluate():
+    """RUArt over the Moonlight encoder at its published widths (the conf
+    key ``LLM_ENCODER`` naming the published config.json, ``BF16``; seeded
+    weights drawn on the card) through ``make_eval_step`` (one CUDA graph
+    per signature) and ``evaluate`` on 48 synthetic items at batch 16:
+    every score finite, a second pass (graph replays) giving the same
+    answers and loss, the eager step a loss within 1e-5 (answers are not
+    compared: with random weights the best score may change on rounding);
+    the routed-row counter at top 6 of 64 in each of the 26 expert
+    layers; each pass's launches of the encoder's kernels, set to 0 just
+    before it and read just after, at their number per encoder call (one
+    route, permute and combine and two grouped GEMMs per expert layer, one
+    192/128 attention per layer) times the pass's encoder calls. Returns
+    the graph pass's seconds and the launches of the three passes."""
+    from ruart_tpu_torch.core.presets import stvqa_config
+
+    with open(os.path.join(HERE, "portbench", "configs",
+                           "moonlight-bf16.json")) as f:
+        published = json.load(f)["bert"]
+    # the conf names the config.json for its whole life (Config reads it
+    # again wherever it derives its widths: the collator too)
+    folder = tempfile.mkdtemp()
+    try:
+        path = os.path.join(folder, "config.json")
+        with open(path, "w") as f:
+            json.dump(published, f)
+        moe_layers = (published["num_hidden_layers"]
+                      - published["first_k_dense_replace"])
+        per_call = {"route": moe_layers, "permute": moe_layers,
+                    "grouped GEMM": 2 * moe_layers, "combine": moe_layers,
+                    "192/128 attention": published["num_hidden_layers"]}
+        return _moonlight_evaluate(stvqa_config(
+            vocab_size=5000, batch_size=16,
+            preprocess_ocr_name="ocr_PMTD_ASTER,ES_ocr",
+            preprocess_od_name="OD_bottom-up", LLM_ENCODER=path, BF16=True),
+            per_call)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def _moonlight_evaluate(cfg, per_call):
+    import torch
+
+    from ruart_tpu_torch.data.dataset import VQADataset
+    from ruart_tpu_torch.data.preprocess import Preprocessor
+    from ruart_tpu_torch.data.synthetic import make_synthetic_raw_dataset
+    from ruart_tpu_torch.eval.evaluator import evaluate
+    from ruart_tpu_torch.models.fusion.model import RUArtModel
+    from ruart_tpu_torch.models.fusion.spec import ModelSpec
+    from ruart_tpu_torch.ops import attention as att
+    from ruart_tpu_torch.ops import moe
+    from ruart_tpu_torch.text.wordpiece import WordPieceTokenizer, build_demo_vocab
+    from ruart_tpu_torch.train.loss import make_loss_fn
+    from ruart_tpu_torch.train.train_step import make_eval_step
+    from ruart_tpu_torch.utils.graphs import release
+
+    spec = ModelSpec.from_config(cfg)
+    pre = Preprocessor(cfg)
+    raw = make_synthetic_raw_dataset(48, seed=5, n_ocr_range=(15, 30),
+                                     n_es=40)["data"]
+    data = pre._process_data(raw)
+    pre.train_vocab = pre._build_vocab(data)
+    pre._assign_ids(data)
+    ds = VQADataset(data, cfg, mode="dev",
+                    tokenizer=WordPieceTokenizer(build_demo_vocab()))
+    device = torch.device("cuda")
+    with device:
+        model = RUArtModel(spec)
+    model.init_weights(torch.Generator(device=device).manual_seed(0))
+    loss_fn = make_loss_fn("BCE_D1")
+    counters = {"route": (moe.route_cuda, "launches"),
+                "permute": (moe.permute_cuda, "launches"),
+                "grouped GEMM": (moe.grouped_gemm_cuda, "launches"),
+                "combine": (moe.combine_cuda, "launches"),
+                "192/128 attention": (att.attention_rows_cuda,
+                                      "wide_launches")}
+    passes = []
+
+    def counted(step):
+        """One evaluate pass with the launch counts set to 0 just before
+        and read just after."""
+        for fn, name in counters.values():
+            setattr(fn, name, 0)
+        out = evaluate(step, ds, cfg, spec, device)
+        torch.cuda.synchronize()
+        passes.append({k: getattr(fn, name)
+                       for k, (fn, name) in counters.items()})
+        return out
+
+    step = make_eval_step(model, loss_fn)
+    first = counted(step)
+    t0 = time.perf_counter()
+    again = counted(step)
+    seconds = time.perf_counter() - t0
+    calls = []  # the eager pass's encoder calls (a graph replay runs no hook)
+    hook = model.Bert.register_forward_pre_hook(lambda m, a: calls.append(1))
+    eager = counted(make_eval_step(model, loss_fn, graphs=False))
+    hook.remove()
+    release(step)
+    launches = {k: sum(p[k] for p in passes) for k in counters}
+    n_batches = -(-first["n"] // cfg.batch_size)
+    counts_ok = len(calls) >= n_batches and all(
+        p == {k: n * len(calls) for k, n in per_call.items()} for p in passes)
+    log(f"phase 1 (i): evaluate's launches per pass (graph capture pass, "
+        f"graph replay pass, eager pass) over {len(calls)} encoder calls "
+        f"({n_batches} batches): {passes}; per encoder call {per_call}")
+    load = model.Bert.expert_load.sum(dim=1)
+    answers = [r["answer"] for r in first["res"]]
+    ok = (first["n"] == 48 and math.isfinite(first["loss"])
+          and all(math.isfinite(r["score"]) for r in first["save_res"])
+          and answers == [r["answer"] for r in again["res"]]
+          and first["loss"] == again["loss"]
+          and abs(first["loss"] - eager["loss"]) <= 1e-5 * abs(eager["loss"])
+          and bool((load == load[0]).all()) and int(load[0]) % 6 == 0
+          and load.numel() == 26 and counts_ok)
+    log(f"phase 1 (i): evaluate over the Moonlight encoder at its published "
+        f"widths: {first['n']} items, loss {first['loss']:.6f} (eager "
+        f"{eager['loss']:.6f}), a graph pass in {seconds:.3f} s, "
+        f"{int(load[0]) // 6} tokens routed per expert layer")
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("phase 1 (i): evaluate over the Moonlight "
+                             "encoder failed its checks")
+    return seconds, launches, len(calls) * len(passes)
 
 
 def _letters(n: int) -> str:
@@ -3344,7 +3697,7 @@ def run(phase13=None, skip=()) -> int:
 
     from ruart_tpu_torch.models.bert.model import BertSelfAttention
     from ruart_tpu_torch.ops import attention as att
-    from ruart_tpu_torch.ops import gemm
+    from ruart_tpu_torch.ops import gemm, moe
 
     def reset_counts():
         att.sharded_fused_attention.launches = 0
@@ -3418,6 +3771,9 @@ def run(phase13=None, skip=()) -> int:
             f"hot in L2: kernel {g1[0]:.4f} ms, plain {g1[1]:.4f} ms, FFMA "
             f"F.linear {g1[2]:.4f} ms; bound {g1[3]:.4f} ms (operations): "
             f"kernel at {100 * g1[3] / g1[0]:.1f}% of its bound")
+        moon_errs = check_moonlight(att, moe)
+        moon = time_moonlight(att, moe)
+        _, moon_launches, moon_calls = moonlight_evaluate()
         log(f"phase 1 ok: worst fp32 error K1 {errs['K1']:.3e}, K2 {errs['K2']:.3e}")
 
     # -- phase 2: serve at full width (main path 1) ---------------------------
@@ -3760,6 +4116,25 @@ def run(phase13=None, skip=()) -> int:
                    source="ruart_tpu_torch/csrc/gemm_tf32x3.cu"),
              # the worst error against fp64 over the sum's scale |x||w|^T
              max_scaled_err=g1_errs[1]),
+        # no TPU kernel: the JAX package has no expert layer; launches:
+        # the three evaluate passes of phase 1 (i) over the Moonlight
+        # encoder (route, permute and combine beside the grouped GEMM)
+        {"name": "grouped expert GEMM (gate/up + down, one layer at 4,352 "
+                 "tokens, top 6 of 64)", "route": "cuda",
+         "source": "ruart_tpu_torch/csrc/moe_bf16.cu", "replaces": "none",
+         "launches": moon_launches["grouped GEMM"],
+         "launches_route_permute_combine": [
+             moon_launches[k] for k in ("route", "permute", "combine")],
+         "encoder_calls": moon_calls,
+         "max_err_over_scale": moon_errs[0],
+         "ms": moon["gate_up"] + moon["down"], "plain_ms": moon["plain"],
+         "bound_ms": moon["bound_ms"]},
+        {"name": "attention_rows bf16 at 192/128 (the latent attention)",
+         "route": "cuda", "source": "ruart_tpu_torch/csrc/attention_bf16.cu",
+         "replaces": "none", "launches": moon_launches["192/128 attention"],
+         "encoder_calls": moon_calls, "max_abs_err": moon_errs[1],
+         "ms": moon["mla_ms"], "plain_ms": moon["mla_plain"],
+         "bound_ms": moon["mla_bound"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

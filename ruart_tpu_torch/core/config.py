@@ -65,6 +65,33 @@ def read_conf_file(path: str) -> Dict[str, Any]:
         return read_conf_lines(f)
 
 
+# the longest encoder row the Moonlight encoder takes: the attention
+# kernel's limit (ops/attention.MAX_LEN)
+LLM_MAX_ROW_LEN = 512
+# conf keys whose values bound an encoder row's width
+ROW_CAP_KEYS = ("max_q_bert_len", "max_ocr_bert_len", "max_od_bert_len",
+                "bert_pack_len")
+
+
+def llm_encoder_dims(opt: Dict[str, Any]) -> tuple:
+    """(hidden_size, num_hidden_layers) of the ``LLM_ENCODER`` config.json."""
+    import json
+
+    with open(str(opt["LLM_ENCODER"])) as f:
+        raw = json.load(f)
+    return int(raw["hidden_size"]), int(raw["num_hidden_layers"])
+
+
+def llm_encoder_conflicts(opt: Dict[str, Any]) -> list:
+    """What the conf combines with ``LLM_ENCODER`` that the Moonlight
+    encoder does not run: BERT_LARGE, INT8_BERT, or rows over
+    :data:`LLM_MAX_ROW_LEN` tokens (the chunked encoder path)."""
+    out = [k for k in ("BERT_LARGE", "INT8_BERT") if k in opt]
+    out += [f"{k} {opt[k]} (rows over {LLM_MAX_ROW_LEN})" for k in ROW_CAP_KEYS
+            if k in opt and int(opt[k]) > LLM_MAX_ROW_LEN]
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelDims:
     """Derived dimension flow of the fusion network.
@@ -217,7 +244,9 @@ class Config:
         phoc_dim = int(opt.get("phoc_dim", 604)) if "PHOC" in opt else 0
 
         if "BERT" in opt:
-            if "BERT_LARGE" in opt:
+            if "LLM_ENCODER" in opt:
+                bert_dim, bert_layers = llm_encoder_dims(opt)
+            elif "BERT_LARGE" in opt:
                 bert_dim, bert_layers = 1024, 24
             else:
                 bert_dim, bert_layers = 768, 12

@@ -6,8 +6,10 @@
 // grouped_attention(packed=True), the path of every BERT layer under BF16)
 // and _grouped_kernel (:54; the same function for head widths the 128-lane
 // bundles reject). Per packed row b and head h it computes
-//   out[b, h] = softmax(q_h k_h^T / sqrt(dh) + bias) v_h
-// for bf16 q/k/v [B, L, H*dh], an fp32 bias of [B, L] (key bias) or
+//   out[b, h] = softmax(q_h k_h^T * scale + bias) v_h
+// for bf16 q/k [B, L, H*dh], v and out [B, L, H*dv] (dv = dh for BERT,
+// where scale is 1/sqrt(dh); the Moonlight encoder's latent attention has
+// dh 192 = 128 + 64 rope dims and dv 128, scale 1/sqrt(192)), an fp32 bias of [B, L] (key bias) or
 // [B, L, L] (per query: the packed segment mask) and a bf16 output: fp32
 // scores, a max-subtracted fp32 softmax, the probabilities NORMALIZED and
 // rounded to bf16 before P V (as the plain version attention_rows_plain and
@@ -60,6 +62,10 @@
 //     (quotient), not a division.
 //   * Epilogue: lanes t and t ^ 1 swap half their C fragment, so that each
 //     lane holds four neighbouring outputs of one row: 8-byte stores.
+//   * Query/key and value widths apart (DP, DV): the Moonlight encoder's
+//     192/128 heads take DP 192, DV 128 (Q's fragments 48 registers, O's
+//     64; no register cap). Every BERT width keeps DV = DP, so its code is
+//     the same as before the split.
 //   * mma.sync, not wgmma: wgmma takes 64-row tiles per warpgroup, which at
 //     L 32 would span two (row, head) pairs; mma.sync keeps a warp per 16
 //     queries of one head.
@@ -95,6 +101,7 @@ __host__ __device__ constexpr int pitch(int dp) { return dp + 8; }
 // die after Q K^T, and at dh <= 64 the kernel fits 72 registers. Longer
 // rows keep Q's fragments across the key tiles: no cap.
 __host__ __device__ constexpr int min_blocks(int dp, bool one_tile) {
+  if (dp > 128) return 1;
   return one_tile ? (dp <= 64 ? 7 : dp <= 96 ? 5 : 4) : 1;
 }
 
@@ -105,7 +112,7 @@ struct Plan {
   int warps, qtile, n_qtiles, ktile, n_ktiles, stages, bpitch, smem, rows;
 };
 
-template <int DP, bool kBias2d, bool kOneTile>
+template <int DP, int DV, bool kBias2d, bool kOneTile>
 Plan plan(int L) {
   Plan p;
   p.warps = (L + kRows - 1) / kRows;
@@ -117,7 +124,8 @@ Plan plan(int L) {
   p.stages = p.n_ktiles > 1 ? 2 : 1;
   p.bpitch = p.ktile > 32 ? p.ktile : 32;
   p.rows = 0;
-  p.smem = (p.qtile + 2 * p.stages * p.ktile) * pitch(DP) *
+  p.smem = ((p.qtile + p.stages * p.ktile) * pitch(DP) +
+            p.stages * p.ktile * pitch(DV)) *
                (int)sizeof(bf16) +
            p.stages * (kBias2d ? p.qtile : 1) * p.bpitch * (int)sizeof(float);
   return p;
@@ -249,19 +257,22 @@ __device__ __forceinline__ void stage_bias(float* dst, int bpitch,
   }
 }
 
-// DP: dh rounded up to 16 (zero columns past dh); kOneTile: L <=
-// kShortLen, one key tile. One block per (row b, query tile, head).
-template <int DP, bool kBias2d, bool kOneTile>
+// DP: dh rounded up to 16 (zero columns past dh); DV: dv likewise;
+// kOneTile: L <= kShortLen, one key tile. One block per (row b, query
+// tile, head).
+template <int DP, int DV, bool kBias2d, bool kOneTile>
 __global__ void __launch_bounds__(kMaxWarps * 32, min_blocks(DP, kOneTile))
     attention_bf16_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
                           const bf16* __restrict__ v,
                           const float* __restrict__ bias,
-                          bf16* __restrict__ out, int H, int L, int dh, Plan p,
-                          bool vec, float scale) {
+                          bf16* __restrict__ out, int H, int L, int dh, int dv,
+                          Plan p, bool vec, float scale) {
   constexpr int kP = pitch(DP);
+  constexpr int kPV = pitch(DV);
   constexpr int kD16 = DP / 16;  // k-steps of S = Q K^T
-  constexpr int kD8 = DP / 8;    // n-tiles of O
+  constexpr int kV16 = DV / 16;  // k-steps of O's n-tile pairs
+  constexpr int kD8 = DV / 8;    // n-tiles of O
   constexpr int kNT = (kOneTile ? kShortLen : kKeyTile) / 8;  // S n-tiles
 
   // Q, then `stages` key tiles of K, of V and of the bias
@@ -270,7 +281,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, min_blocks(DP, kOneTile))
   bf16* qsm = reinterpret_cast<bf16*>(smem);
   bf16* ksm = qsm + p.qtile * kP;
   bf16* vsm = ksm + p.stages * p.ktile * kP;
-  float* bsm = reinterpret_cast<float*>(vsm + p.stages * p.ktile * kP);
+  float* bsm = reinterpret_cast<float*>(vsm + p.stages * p.ktile * kPV);
 
   // heads fastest, so the blocks that run together read the same rows; y
   // and z number rows x query tiles
@@ -284,6 +295,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32, min_blocks(DP, kOneTile))
   const int g = lane >> 2, t = lane & 3;
   const long long pos_stride = (long long)H * dh;
   const long long base = (long long)b * L * pos_stride + (long long)h * dh;
+  const long long vpos_stride = (long long)H * dv;
+  const long long vbase = (long long)b * L * vpos_stride + (long long)h * dv;
   const float* bias_b = bias + (long long)b * L * (kBias2d ? L : 1);
 
   // P must be normalized before it is rounded: with more than one key tile
@@ -299,8 +312,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32, min_blocks(DP, kOneTile))
     stage<DP>(ksm + s * p.ktile * kP, k + base, pos_stride, k0, p.ktile, L,
               dh, vec);
     if (!kOneTile && it >= n_iter - n_ktiles)  // the pass that computes P V
-      stage<DP>(vsm + s * p.ktile * kP, v + base, pos_stride, k0, p.ktile,
-                L, dh, vec);
+      stage<DV>(vsm + s * p.ktile * kPV, v + vbase, vpos_stride, k0,
+                p.ktile, L, dv, vec);
     stage_bias(bsm + s * brows * p.bpitch, p.bpitch, bias_b,
                kBias2d ? L : 0, kBias2d ? q0 : 0, brows, k0, p.ktile, L);
     cp_async_commit();
@@ -308,7 +321,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, min_blocks(DP, kOneTile))
   stage<DP>(qsm, q + base, pos_stride, q0, p.qtile, L, dh, vec);
   issue(0, 0);
   if (kOneTile) {  // V in a group of its own: it lands while Q K^T runs
-    stage<DP>(vsm, v + base, pos_stride, 0, p.ktile, L, dh, vec);
+    stage<DV>(vsm, v + vbase, vpos_stride, 0, p.ktile, L, dv, vec);
     cp_async_commit();
   }
 
@@ -341,7 +354,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, min_blocks(DP, kOneTile))
     }
     const int s_idx = it & 1;
     const bf16* kst = ksm + s_idx * p.ktile * kP;
-    const bf16* vst = vsm + s_idx * p.ktile * kP;
+    const bf16* vst = vsm + s_idx * p.ktile * kPV;
     const float* bst = bsm + s_idx * brows * p.bpitch;
     const int nk = min(p.ktile, L - (it % n_ktiles) * p.ktile);
 
@@ -428,7 +441,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, min_blocks(DP, kOneTile))
         cp_async_wait<0>();
         __syncthreads();
       }
-      const bf16* vrow = vst + (lane & 15) * kP + (lane >> 4) * 8;
+      const bf16* vrow = vst + (lane & 15) * kPV + (lane >> 4) * 8;
       const float r[2] = {1.f / l[0], 1.f / l[1]};
 #pragma unroll
       for (int kk = 0; kk < kNT / 2; ++kk) {
@@ -443,9 +456,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32, min_blocks(DP, kOneTile))
                                    quotient(sj[3], l[1], r[1]));
           }
 #pragma unroll
-          for (int dd = 0; dd < kD16; ++dd) {
+          for (int dd = 0; dd < kV16; ++dd) {
             uint32_t vb[4];
-            ldsm_x4_trans(vb, vrow + 16 * kk * kP + 16 * dd);
+            ldsm_x4_trans(vb, vrow + 16 * kk * kPV + 16 * dd);
             mma(acc[2 * dd], a, vb[0], vb[1]);
             mma(acc[2 * dd + 1], a, vb[2], vb[3]);
           }
@@ -459,14 +472,14 @@ __global__ void __launch_bounds__(kMaxWarps * 32, min_blocks(DP, kOneTile))
   // neighbouring values of row g and an odd lane four of row g + 8
   const bool odd = t & 1;
   const int pos = q0 + wrow + g + (odd ? 8 : 0);
-  bf16* orow = out + base + pos * pos_stride + 4 * (t >> 1);
+  bf16* orow = out + vbase + pos * vpos_stride + 4 * (t >> 1);
 #pragma unroll
   for (int n = 0; n < kD8; ++n) {
     const float c0 = acc[n][0], c1 = acc[n][1];
     const float c2 = acc[n][2], c3 = acc[n][3];
     const float r0 = __shfl_xor_sync(kFull, odd ? c0 : c2, 1);
     const float r1 = __shfl_xor_sync(kFull, odd ? c1 : c3, 1);
-    if (pos < L && 8 * n + 4 * (t >> 1) < dh) {
+    if (pos < L && 8 * n + 4 * (t >> 1) < dv) {
       const uint2 w = odd ? make_uint2(pack(r0, r1), pack(c2, c3))
                           : make_uint2(pack(c0, c1), pack(r0, r1));
       *reinterpret_cast<uint2*>(orow + 8 * n) = w;
@@ -475,17 +488,17 @@ __global__ void __launch_bounds__(kMaxWarps * 32, min_blocks(DP, kOneTile))
 }
 
 using Kernel = void (*)(const bf16*, const bf16*, const bf16*, const float*,
-                        bf16*, int, int, int, Plan, bool, float);
+                        bf16*, int, int, int, int, Plan, bool, float);
 
 // One kernel of the family, with its shared-memory limit raised once to
 // what its longest rows need.
-template <int DP, bool kBias2d, bool kOneTile>
+template <int DP, int DV, bool kBias2d, bool kOneTile>
 struct Family {
   static Kernel kernel() {
-    return attention_bf16_kernel<DP, kBias2d, kOneTile>;
+    return attention_bf16_kernel<DP, DV, kBias2d, kOneTile>;
   }
 
-  static Plan plan_for(int L) { return plan<DP, kBias2d, kOneTile>(L); }
+  static Plan plan_for(int L) { return plan<DP, DV, kBias2d, kOneTile>(L); }
 
   static int prepare() {
     static int err = -1;
@@ -498,7 +511,7 @@ struct Family {
 
   static int launch(const void* q, const void* k, const void* v,
                     const float* bias, void* out, int B, int H, int L, int dh,
-                    bool vec, float scale, cudaStream_t stream) {
+                    int dv, bool vec, float scale, cudaStream_t stream) {
     Plan p = plan_for(L);
     const long long rows = (long long)B * p.n_qtiles;
     if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -511,7 +524,7 @@ struct Family {
     fn<<<dim3((unsigned)H, y, z), p.warps * 32, p.smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), bias, static_cast<bf16*>(out), H, L, dh,
-        p, vec, scale);
+        dv, p, vec, scale);
     return (int)cudaGetLastError();
   }
 
@@ -527,19 +540,26 @@ struct Family {
   }
 };
 
-// The family member for (L, dh, bias form), passed to `fn` as a value.
+// The family member for (L, dh, dv, bias form), passed to `fn` as a value:
+// dv == dh pads both to one width of 16 to 128; dh over 128 (up to 192)
+// takes dv up to 128 (the latent attention's 192/128).
 template <typename Fn>
-int dispatch(int L, int dh, int bias_2d, Fn fn) {
-  auto by_width = [&](auto dp) -> int {
+int dispatch(int L, int dh, int dv, int bias_2d, Fn fn) {
+  auto by_widths = [&](auto dp, auto dvp) -> int {
     constexpr int DP = decltype(dp)::value;
+    constexpr int DV = decltype(dvp)::value;
     auto by_bias = [&](auto one_tile) -> int {
       constexpr bool kOne = decltype(one_tile)::value;
-      if (bias_2d) return fn(Family<DP, true, kOne>());
-      return fn(Family<DP, false, kOne>());
+      if (bias_2d) return fn(Family<DP, DV, true, kOne>());
+      return fn(Family<DP, DV, false, kOne>());
     };
     if (L > kShortLen) return by_bias(std::false_type());
     return by_bias(std::true_type());
   };
+  auto by_width = [&](auto dp) -> int { return by_widths(dp, dp); };
+  if (dh > 128)
+    return by_widths(std::integral_constant<int, 192>(),
+                     std::integral_constant<int, 128>());
   if (dh <= 16) return by_width(std::integral_constant<int, 16>());
   if (dh <= 32) return by_width(std::integral_constant<int, 32>());
   if (dh <= 48) return by_width(std::integral_constant<int, 48>());
@@ -552,32 +572,47 @@ bool aligned16(const void* ptr) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
-bool valid(int L, int dh) {
-  return L > 0 && L <= kMaxLen && dh > 0 && dh <= 128 && dh % 8 == 0;
+bool valid(int L, int dh, int dv) {
+  if (L <= 0 || L > kMaxLen || dh <= 0 || dh % 8 || dv <= 0 || dv % 8)
+    return false;
+  return dh <= 128 ? dv == dh : dh <= 192 && dv <= 128;
 }
 
 }  // namespace
 
-// K1/K2 in bf16. q, k, v, out: [B, L, H*dh] contiguous bf16; bias: fp32
+// K1/K2 in bf16. q, k: [B, L, H*dh], v, out: [B, L, H*dv] contiguous bf16
+// (dv = dh up to 128, or dh up to 192 with dv up to 128); bias: fp32
 // [B, L] (bias_2d == 0) or [B, L, L] (bias_2d == 1). The caller checks
 // shapes and types. Launches on `stream` and returns cudaGetLastError(), or
 // cudaErrorInvalidValue for what the kernel does not take.
-extern "C" int ruart_attention_bf16_rows(const void* q, const void* k,
-                                         const void* v, const void* bias,
-                                         void* out, int B, int L, int H,
-                                         int dh, int bias_2d, float scale,
-                                         void* stream) {
-  if (B <= 0 || H <= 0 || !valid(L, dh)) return (int)cudaErrorInvalidValue;
+extern "C" int ruart_attention_bf16_rows_v(const void* q, const void* k,
+                                           const void* v, const void* bias,
+                                           void* out, int B, int L, int H,
+                                           int dh, int dv, int bias_2d,
+                                           float scale, void* stream) {
+  if (B <= 0 || H <= 0 || !valid(L, dh, dv))
+    return (int)cudaErrorInvalidValue;
   // 16-byte copies need 16-byte aligned rows: the row and head strides are
   // multiples of 8 elements, so the base pointers decide
   const bool vec = aligned16(q) && aligned16(k) && aligned16(v);
   const float* bias_f = static_cast<const float*>(bias);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = dispatch(L, dh, bias_2d, [&](auto family) {
-    return decltype(family)::launch(q, k, v, bias_f, out, B, H, L, dh, vec,
-                                    scale, s);
+  const int err = dispatch(L, dh, dv, bias_2d, [&](auto family) {
+    return decltype(family)::launch(q, k, v, bias_f, out, B, H, L, dh, dv,
+                                    vec, scale, s);
   });
   return err;
+}
+
+// The same with v and out as wide as q and k (dv = dh): the BERT encoder.
+extern "C" int ruart_attention_bf16_rows(const void* q, const void* k,
+                                         const void* v, const void* bias,
+                                         void* out, int B, int L, int H,
+                                         int dh, int bias_2d, float scale,
+                                         void* stream) {
+  if (dh > 128) return (int)cudaErrorInvalidValue;
+  return ruart_attention_bf16_rows_v(q, k, v, bias, out, B, L, H, dh, dh,
+                                     bias_2d, scale, stream);
 }
 
 // Blocks of the bf16 kernel that one SM keeps resident for a launch at
@@ -585,8 +620,8 @@ extern "C" int ruart_attention_bf16_rows(const void* q, const void* k,
 // entry above does not use it.
 extern "C" int ruart_attention_bf16_blocks_per_sm(int L, int dh,
                                                   int bias_2d) {
-  if (!valid(L, dh)) return 0;
-  return dispatch(L, dh, bias_2d, [&](auto family) {
+  if (!valid(L, dh, dh)) return 0;
+  return dispatch(L, dh, dh, bias_2d, [&](auto family) {
     return decltype(family)::resident(L);
   });
 }

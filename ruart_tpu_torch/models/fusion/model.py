@@ -5,7 +5,9 @@ The same forward as the JAX package (`Models/SDNet.py:253-437`
 semantics), with every conf branch of it: candidates live in fixed-shape
 [B, N, L] tensors, the three BERT calls (question / OCR / OD) share one
 encoder and fuse into one batched call where their token widths match,
-the 12-layer α-combine happens before subword pooling, and the
+the 12-layer α-combine happens before subword pooling (any encoder's
+layers: ``LLM_ENCODER`` puts the Moonlight encoder, ``models/moonlight``,
+in BERT's slot, with 27 layers of 2048), and the
 per-candidate stage runs on compacted rows when the collator attached
 ``cand_sel``. Batch schema: see the JAX module's docstring. Modules and
 parameters exist only where the JAX ``setup`` creates them, so the weight
@@ -61,6 +63,8 @@ from ruart_tpu_torch.models.fusion.layers import (
 )
 from ruart_tpu_torch.models.fusion.rnn import StackedBRNN, gather_last_state
 from ruart_tpu_torch.models.fusion.spec import ModelSpec
+from ruart_tpu_torch.models.moonlight.config import is_moonlight
+from ruart_tpu_torch.models.moonlight.model import MoonlightModel
 from ruart_tpu_torch.parallel.layers import gather_rows, row_range, vocab_embedding
 from ruart_tpu_torch.parallel.mesh import param_dim
 
@@ -137,10 +141,16 @@ class RUArtModel(nn.Module):
             self.pos_embedding = nn.Embedding(s.pos_vocab, s.pos_dim)
         if "ent" in names:
             self.ent_embedding = nn.Embedding(s.ent_vocab, s.ent_dim)
-        if s.use_bert:
+        if s.use_bert and is_moonlight(s.bert):
+            if mesh is not None:
+                raise ValueError("LLM_ENCODER (the Moonlight encoder) cannot "
+                                 "be combined with a (dp, tp) mesh")
+            self.Bert = MoonlightModel(s.bert)
+        elif s.use_bert:
             bert = s.bert if mesh is None else dataclasses.replace(
                 s.bert, mesh=mesh)
             self.Bert = BertModel(bert)
+        if s.use_bert:
             if s.bert_linear_combine:
                 self.alphaBERT = nn.Parameter(
                     torch.ones(s.bert.num_hidden_layers))
@@ -297,6 +307,8 @@ class RUArtModel(nn.Module):
         for name, p in self.named_parameters():
             if name.split(".")[-1] in ("alphaBERT", "gammaBERT", "diagonal"):
                 p.fill_(1.0)
+        if isinstance(getattr(self, "Bert", None), MoonlightModel):
+            self.Bert.init_weights(generator)
         return self
 
     def seed_dropout(self, seed: int) -> torch.Generator:

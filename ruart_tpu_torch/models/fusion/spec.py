@@ -5,15 +5,18 @@ needs. Built once from a :class:`ruart_tpu_torch.core.config.Config`; the
 raw opt dict never reaches the model. Copy of
 ``ruart_tpu/models/fusion/spec.py``. ``BF16`` runs the encoder in bf16
 (``BertConfig.dtype``; the fusion stack stays fp32); ``INT8_BERT`` selects
-the weight-only int8 encoder (``BertConfig.quant``)."""
+the weight-only int8 encoder (``BertConfig.quant``); ``LLM_ENCODER <path
+to config.json>`` the Moonlight encoder (``MoonlightConfig``) in BERT's
+slot, refused beside BERT_LARGE, INT8_BERT and rows over 512."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
-from ruart_tpu_torch.core.config import Config
+from ruart_tpu_torch.core.config import Config, llm_encoder_conflicts
 from ruart_tpu_torch.models.bert.config import BertConfig
+from ruart_tpu_torch.models.moonlight.config import MoonlightConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,12 +82,19 @@ class ModelSpec:
     dropout_emb: float
     variational: bool
     # bert
-    bert: Optional[BertConfig]
+    bert: Optional[BertConfig]  # or a MoonlightConfig (LLM_ENCODER)
 
     @classmethod
     def from_config(cls, cfg: Config, bert_config: Optional[BertConfig] = None):
         opt = cfg.opt
         use_bert = "BERT" in opt
+        if use_bert and "LLM_ENCODER" in opt:
+            conflicts = llm_encoder_conflicts(opt)
+            if conflicts:
+                raise ValueError("LLM_ENCODER (the Moonlight encoder) cannot "
+                                 "be combined with " + ", ".join(conflicts))
+            if not isinstance(bert_config, MoonlightConfig):
+                bert_config = MoonlightConfig.from_json(str(opt["LLM_ENCODER"]))
         if use_bert and bert_config is None:
             bert_config = (
                 BertConfig.large_uncased() if "BERT_LARGE" in opt else BertConfig()

@@ -11,18 +11,24 @@ for sm_90a hold the kernels, by input type:
   head-major layout take the same code without a copy.
 * ``csrc/attention_bf16.cu`` -- K1/K2 on bf16 inputs (the ``BF16``
   encoder): products on the bf16 tensor cores (``mma.sync.m16n8k16``),
-  one block per (row, head, query tile).
+  one block per (row, head, query tile). It also takes v narrower than
+  q and k, and query/key heads wider than 128: the Moonlight encoder's
+  latent attention, 192-wide query/key heads and 128-wide value heads
+  (``models/moonlight``), with its scale 1/sqrt(192) passed in.
 
 Each source states what bounds its kernel on an H100 and how its design
 answers that. They are compiled with ``nvcc`` at first use, in parallel,
 into one library in ``ruart_tpu_torch/_build/`` and loaded with ``ctypes``
 (a plain C interface; no PyTorch headers, so the build takes seconds),
 together with ``csrc/gemm_tf32x3.cu``, the encoder's fp32 Linears
-(``ops/gemm.py``).
+(``ops/gemm.py``), and ``csrc/moe_bf16.cu``, the Moonlight encoder's
+expert layer (``ops/moe.py``).
 
-Model layout (K1/K2): q/k/v are [B, L, H*dh]; ``bias`` is a float32 [B, L]
+Model layout (K1/K2): q/k/v are [B, L, H*dh] (v [B, L, H*dv] where it
+is narrower; bf16 only); ``bias`` is a float32 [B, L]
 additive key bias or a [B, L, L] per-query bias (the packed segment mask).
-The output is [B, L, H*dh] in q's dtype (fp32 or bf16; fp32 scores and
+``scale`` multiplies the scores (1/sqrt(dh) unless given).
+The output is [B, L, H*dv] in q's dtype (fp32 or bf16; fp32 scores and
 softmax, fp32 sums; in bf16 the normalized probabilities are rounded to
 bf16 before P V, as the plain version casts them).
 
@@ -32,7 +38,9 @@ bf16 before P V, as the plain version casts them).
   of their dtype on the current stream; counts its launches in
   ``attention_rows_cuda.launches``, and those on bf16 inputs (the ``BF16``
   encoder, ``attention_bf16.cu``) also in
-  ``attention_rows_cuda.bf16_launches``. A failed build or launch raises.
+  ``attention_rows_cuda.bf16_launches``, and those with v narrower than q
+  (the latent attention) in ``attention_rows_cuda.wide_launches``. A
+  failed build or launch raises.
 * :func:`attention_rows` — dispatch on the tensors' device: CPU tensors
   take the plain version, CUDA tensors the kernel. No fallback.
 * :func:`fused_attention` — :func:`attention_rows` under autograd, the
@@ -74,7 +82,7 @@ import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "attention.cu", _PKG / "csrc" / "attention_bf16.cu",
-           _PKG / "csrc" / "gemm_tf32x3.cu")
+           _PKG / "csrc" / "gemm_tf32x3.cu", _PKG / "csrc" / "moe_bf16.cu")
 BUILD_DIR = _PKG / "_build"
 LIBRARY = BUILD_DIR / "libruart_attention.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -83,29 +91,36 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LINK_FLAGS = ("-lcuda",)
 MAX_LEN = 512
 MAX_HEAD_DIM = 128
+# the bf16 kernel's query/key heads beside a narrower value head (v up to
+# MAX_HEAD_DIM): the latent attention's 192 = 128 + 64 rope dims
+MAX_WIDE_HEAD_DIM = 192
 
 
 def attention_rows_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-    heads: int,
+    heads: int, scale: float | None = None,
 ) -> torch.Tensor:
     """Model-layout attention in plain PyTorch (``attention_rows_xla``):
-    fp32 scores and softmax, probabilities cast to q's dtype, fp32 sums."""
+    fp32 scores (times ``scale``, else over sqrt(dh)) and softmax,
+    probabilities cast to q's dtype, fp32 sums; v may be narrower than q."""
     B, L, D = q.shape
     dh = D // heads
+    dv = v.shape[-1] // heads
     qh = q.reshape(B, L, heads, dh).float()
     kh = k.reshape(B, L, heads, dh).float()
-    vh = v.reshape(B, L, heads, dh).float()
-    s = torch.einsum("blhd,bmhd->bhlm", qh, kh) / torch.tensor(
-        float(dh), dtype=torch.float32
-    ).sqrt()
+    vh = v.reshape(B, L, heads, dv).float()
+    s = torch.einsum("blhd,bmhd->bhlm", qh, kh)
+    if scale is None:
+        s = s / torch.tensor(float(dh), dtype=torch.float32).sqrt()
+    else:
+        s = s * scale
     if bias.dim() == 3:
         s = s + bias[:, None].float()
     else:
         s = s + bias[:, None, None, :].float()
     p = torch.softmax(s, dim=-1).to(q.dtype).float()
     ctx = torch.einsum("bhlm,bmhd->blhd", p, vh)
-    return ctx.reshape(B, L, D).to(q.dtype)
+    return ctx.reshape(B, L, heads * dv).to(q.dtype)
 
 
 def _nvcc() -> str:
@@ -192,6 +207,11 @@ def _library() -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    fn = lib.ruart_attention_bf16_rows_v
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
     fn = lib.ruart_flash_attention
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
         ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
@@ -217,17 +237,26 @@ def _check(q, k, v, bias, heads):
     if bias.dtype != torch.float32:
         raise ValueError(f"attention_rows_cuda: bias must be float32, "
                          f"got {bias.dtype}")
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+    if (q.dim() != 3 or k.shape != q.shape or v.dim() != 3
+            or v.shape[:2] != q.shape[:2]):
         raise ValueError(f"attention_rows_cuda: q/k/v shapes {tuple(q.shape)} "
                          f"{tuple(k.shape)} {tuple(v.shape)}")
     B, L, D = q.shape
-    if heads <= 0 or D % heads:
-        raise ValueError(f"attention_rows_cuda: width {D} not divisible by "
-                         f"{heads} heads")
-    dh = D // heads
-    if dh % 8 or dh > MAX_HEAD_DIM:
-        raise ValueError(f"attention_rows_cuda: head width {dh} must be a "
-                         f"multiple of 8 up to {MAX_HEAD_DIM}")
+    if heads <= 0 or D % heads or v.shape[2] % heads:
+        raise ValueError(f"attention_rows_cuda: widths {D}, {v.shape[2]} not "
+                         f"divisible by {heads} heads")
+    dh, dv = D // heads, v.shape[2] // heads
+    if dv == dh:
+        if dh % 8 or dh > MAX_HEAD_DIM:
+            raise ValueError(f"attention_rows_cuda: head width {dh} must be "
+                             f"a multiple of 8 up to {MAX_HEAD_DIM}")
+    elif q.dtype != torch.bfloat16 or not (
+            MAX_HEAD_DIM < dh <= MAX_WIDE_HEAD_DIM and dh % 8 == 0
+            and 0 < dv <= MAX_HEAD_DIM and dv % 8 == 0):
+        raise ValueError(f"attention_rows_cuda: query/key heads of {dh} "
+                         f"beside value heads of {dv} take bf16, {dh} over "
+                         f"{MAX_HEAD_DIM} up to {MAX_WIDE_HEAD_DIM} and {dv} "
+                         f"up to {MAX_HEAD_DIM}, multiples of 8")
     if not 1 <= L <= MAX_LEN:
         raise ValueError(f"attention_rows_cuda: length {L} not in "
                          f"[1, {MAX_LEN}]")
@@ -238,7 +267,7 @@ def _check(q, k, v, bias, heads):
     for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
         if not t.is_contiguous():
             raise ValueError(f"attention_rows_cuda: {name} is not contiguous")
-    return B, L, dh
+    return B, L, dh, dv
 
 
 def _check_out(out, shape, dtype, device, name):
@@ -253,48 +282,55 @@ def _check_out(out, shape, dtype, device, name):
 
 def attention_rows_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-    heads: int, out: torch.Tensor | None = None,
+    heads: int, out: torch.Tensor | None = None, scale: float | None = None,
 ) -> torch.Tensor:
     """Launch the hand-written kernel on CUDA tensors (see module doc);
-    ``out`` (contiguous, q's shape and dtype) receives the result instead
-    of a new tensor."""
-    B, L, dh = _check(q, k, v, bias, heads)
-    out = _check_out(out, q.shape, q.dtype, q.device, "attention_rows_cuda")
+    ``out`` (contiguous, v's shape and q's dtype) receives the result
+    instead of a new tensor."""
+    B, L, dh, dv = _check(q, k, v, bias, heads)
+    out = _check_out(out, v.shape, q.dtype, q.device, "attention_rows_cuda")
     if B == 0:
         return out
     lib = _library()
     bf16 = q.dtype == torch.bfloat16
+    scale = 1.0 / math.sqrt(dh) if scale is None else float(scale)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             out.data_ptr(), B, L, heads, dh, int(bias.dim() == 3))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if bf16:
-            err = lib.ruart_attention_bf16_rows(*args, 1.0 / math.sqrt(dh),
-                                                stream)
+        if dv != dh:
+            err = lib.ruart_attention_bf16_rows_v(*args[:9], dv, args[9],
+                                                  scale, stream)
+        elif bf16:
+            err = lib.ruart_attention_bf16_rows(*args, scale, stream)
         else:
-            err = lib.ruart_attention_rows(*args, 1.0 / math.sqrt(dh), stream)
+            err = lib.ruart_attention_rows(*args, scale, stream)
     if err != 0:
         name = "bf16 attention kernel" if bf16 else "attention kernel"
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     attention_rows_cuda.launches += 1
     if bf16:
         attention_rows_cuda.bf16_launches += 1
+    if dv != dh:
+        attention_rows_cuda.wide_launches += 1
     return out
 
 
 attention_rows_cuda.launches = 0
 attention_rows_cuda.bf16_launches = 0
+attention_rows_cuda.wide_launches = 0
 
 
 def attention_rows(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-    heads: int,
+    heads: int, scale: float | None = None,
 ) -> torch.Tensor:
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    kw = {} if scale is None else {"scale": scale}
     if q.device.type == "cuda":
-        return attention_rows_cuda(q, k, v, bias, heads)
+        return attention_rows_cuda(q, k, v, bias, heads, **kw)
     if q.device.type == "cpu":
-        return attention_rows_plain(q, k, v, bias, heads)
+        return attention_rows_plain(q, k, v, bias, heads, **kw)
     raise ValueError(f"attention_rows: no path for device {q.device}")
 
 
@@ -306,10 +342,12 @@ class _FusedAttention(torch.autograd.Function):
     an fp32 one where it needs a gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, heads):
+    def forward(ctx, q, k, v, bias, heads, scale=None):
         ctx.save_for_backward(q, k, v, bias)
-        ctx.heads = heads
-        return attention_rows(q, k, v, bias, heads)
+        ctx.heads, ctx.scale = heads, scale
+        if scale is None:
+            return attention_rows(q, k, v, bias, heads)
+        return attention_rows(q, k, v, bias, heads, scale=scale)
 
     @staticmethod
     def backward(ctx, grad):
@@ -317,18 +355,18 @@ class _FusedAttention(torch.autograd.Function):
         wanted = ctx.needs_input_grad[:4]
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_(w) for t, w in zip(saved, wanted)]
-            out = attention_rows_plain(*inputs, ctx.heads)
+            out = attention_rows_plain(*inputs, ctx.heads, ctx.scale)
             leaves = [t for t, w in zip(inputs, wanted) if w]
             got = iter(torch.autograd.grad(out, leaves, grad.to(out.dtype)))
-        return (*(next(got) if w else None for w in wanted), None)
+        return (*(next(got) if w else None for w in wanted), None, None)
 
 
 def fused_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-    heads: int,
+    heads: int, scale: float | None = None,
 ) -> torch.Tensor:
     """Differentiable :func:`attention_rows` (see :class:`_FusedAttention`)."""
-    return _FusedAttention.apply(q, k, v, bias, heads)
+    return _FusedAttention.apply(q, k, v, bias, heads, scale)
 
 
 def flash_attention_plain(
@@ -509,6 +547,7 @@ def sharded_fused_attention_global(
 _COUNTERS = [
     (attention_rows_cuda, "launches"),
     (attention_rows_cuda, "bf16_launches"),
+    (attention_rows_cuda, "wide_launches"),
     (flash_attention_cuda, "launches"),
     (sharded_fused_attention, "launches"),
 ]

@@ -103,9 +103,11 @@ class Optimizer:
         self.grad_clip = float(grad_clip)
         self.mesh = mesh
         frozen = frozen_roots(spec, tune_partial)
+        # a frozen parameter (requires_grad False: the Moonlight encoder's
+        # weights) never enters the optimizer, whatever the conf
         self.params: Dict[str, nn.Parameter] = {
             name: p for name, p in model.named_parameters()
-            if name.split(".")[0] not in frozen
+            if name.split(".")[0] not in frozen and p.requires_grad
         }
         self.count = 0
         device = next(iter(self.params.values())).device if self.params else None

@@ -75,6 +75,7 @@ from ruart_tpu_torch.models.bert.config import BertConfig
 from ruart_tpu_torch.models.bert.convert import load_bert_params
 from ruart_tpu_torch.models.fusion.model import RUArtModel, install_embeddings
 from ruart_tpu_torch.models.fusion.spec import ModelSpec
+from ruart_tpu_torch.models.moonlight.config import is_moonlight
 from ruart_tpu_torch.ops.attention import tp_kernel_ok
 from ruart_tpu_torch.ops.quant import quantize_bert_params
 from ruart_tpu_torch.parallel.distributed import (
@@ -261,10 +262,17 @@ class Trainer:
                 self.spec, bert=dataclasses.replace(self.spec.bert, quant="none")
             )
         # random init on the host from a seeded generator (the same weights
-        # on every device), then the pretrained tables
-        model = RUArtModel(self.spec).init_weights(
-            torch.Generator().manual_seed(cfg.seed)
-        )
+        # on every device), then the pretrained tables; the Moonlight
+        # encoder (31 GB in bf16) is built and drawn on the device
+        if is_moonlight(self.spec.bert):
+            with self.device:
+                model = RUArtModel(self.spec)
+            model.init_weights(
+                torch.Generator(device=self.device).manual_seed(cfg.seed))
+        else:
+            model = RUArtModel(self.spec).init_weights(
+                torch.Generator().manual_seed(cfg.seed)
+            )
         install_embeddings(
             model,
             glove=embeddings.get("glove_embedding"),

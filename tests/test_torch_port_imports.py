@@ -59,6 +59,7 @@ def test_scan_sees_the_package():
     assert native == {"ruart_tpu_torch/csrc/attention.cu",
                       "ruart_tpu_torch/csrc/attention_bf16.cu",
                       "ruart_tpu_torch/csrc/gemm_tf32x3.cu",
+                      "ruart_tpu_torch/csrc/moe_bf16.cu",
                       "ruart_tpu_torch/native/phoc.cc",
                       "ruart_tpu_torch/native/fastcollate.cc"}
 

@@ -32,10 +32,11 @@ def _widths(source, pattern):
 
 def test_dispatch_widths_match_the_sources():
     """kernel_of mirrors the sources' dispatch: the bf16 kernel pads dh to
-    16, 32, 48, 64, 96 or 128, the fp32 one to multiples of 32."""
+    16, 32, 48, 64, 96 or 128 (and takes the latent attention's 192
+    beside values of 128), the fp32 one to multiples of 32."""
     bf16 = _widths(CSRC / "attention_bf16.cu", r"integral_constant<int, (\d+)>")
     fp32 = _widths(CSRC / "attention.cu", r"launch_dp<T, (\d+)>")
-    assert bf16 == [16, 32, 48, 64, 96, 128] and fp32 == [32, 64, 96, 128]
+    assert bf16 == [16, 32, 48, 64, 96, 128, 192] and fp32 == [32, 64, 96, 128]
     for dh in range(8, 129, 8):
         for dtype, widths in (("bfloat16", bf16), ("float32", fp32)):
             name = ks.kernel_of(dict(op="rows", dtype=dtype, dh=dh, L=16,
@@ -45,12 +46,18 @@ def test_dispatch_widths_match_the_sources():
 
 
 def test_cases_reach_every_kernel_of_the_library():
-    """24 bf16 kernels (6 widths x 2 bias forms x one or more key tiles),
-    8 fp32 K1/K2 kernels, 4 K3 kernels on bf16 inputs and G1: 37."""
+    """28 bf16 kernels (6 widths and the 192/128 pair x 2 bias forms x one
+    or more key tiles), 8 fp32 K1/K2 kernels, 4 K3 kernels on bf16 inputs,
+    G1 and the expert layer's 5 (route, permute, the two grouped products,
+    combine): 46."""
     names = {ks.kernel_of(c) for c in ks.cases()}
-    assert len(names) == 37
+    assert len(names) == 46
     assert "gemm_tf32x3_kernel" in names
-    assert sum(n.startswith("attention_bf16_kernel<") for n in names) == 24
+    assert {"moe_route_kernel", "moe_permute_kernel", "moe_gemm_kernel<true>",
+            "moe_gemm_kernel<false>", "moe_combine_kernel"} <= names
+    assert sum(n.startswith("attention_bf16_kernel<192,128,")
+               for n in names) == 4
+    assert sum(n.startswith("attention_bf16_kernel<") for n in names) == 28
     assert sum(n.startswith("attention_kernel<float,") for n in names) == 8
     assert sum(n.startswith("attention_kernel<__nv_bfloat16,")
                for n in names) == 4

@@ -27,7 +27,13 @@ least once through its wrapper:
 * ``sharded_fused_attention`` on a tp-2 shard of 6 heads;
 * G1 (``ops.gemm.linear_cuda``, ``csrc/gemm_tf32x3.cu``) with one to three
   weights, with and without bias and gelu, M off its tiles (1, 130, 200)
-  and K of one stage (32) to six.
+  and K of one stage (32) to six;
+* the Moonlight encoder's kernels: the bf16 attention at 192-wide
+  query/key and 128-wide value heads (``attention_rows_cuda(...,
+  scale=)``) at every length above, both bias forms; ``csrc/moe_bf16.cu``
+  (``ops.moe``: route, permute, the grouped gate/up and down products,
+  combine) at :data:`MOE_CASES`, rows off the 64-row tiles, experts with
+  no rows.
 
 Every input is a copy between two GUARD_BYTES bands of NaN, so a read past
 either end that reaches an output makes it NaN; every output (but the
@@ -67,6 +73,9 @@ FLASH_WIDTHS = (8, 40, 72, 104)
 # G1 (M, N, K, weights, gelu, bias)
 GEMM_CASES = ((130, 256, 128, 3, True, True), (1, 128, 64, 1, False, False),
               (200, 384, 192, 2, False, True), (130, 128, 32, 1, True, True))
+# the expert layer (tokens, hidden, expert width, experts, top k)
+MOE_CASES = ((37, 128, 64, 8, 2), (130, 64, 128, 5, 3))
+MOE_OPS = ("moe_route", "moe_permute", "moe_gemm", "moe_combine")
 # rows, L, heads, dh, segment bias: chip_smoke.RACE_SHAPES
 RACE_SHAPES = ((136, 32, 12, 64, True), (8, 512, 12, 64, True))
 
@@ -105,6 +114,15 @@ def cases(race: bool = False):
     for M, N, K, n, gelu, bias in GEMM_CASES:
         out.append(dict(op="gemm", dtype="float32", M=M, N=N, K=K, n=n,
                         gelu=gelu, bias=bias))
+    for L in LENGTHS:
+        for bias_2d in (True, False):
+            out.append(dict(op="wide", dtype="bfloat16", B=1 if L == 512 else 3,
+                            L=L, H=2, dh=192, dv=128, bias_2d=bias_2d))
+    for T, D, W, E, k in MOE_CASES:
+        for op in MOE_OPS:
+            for gate_up in ((True, False) if op == "moe_gemm" else (True,)):
+                out.append(dict(op=op, dtype="bfloat16", T=T, D=D, W=W, E=E,
+                                k=k, gate_up=gate_up))
     return out
 
 
@@ -115,6 +133,14 @@ def kernel_of(case) -> str:
     16, 32, 48, 64, 96 or 128; one key tile up to L 32)."""
     if case["op"] == "gemm":
         return "gemm_tf32x3_kernel"
+    if case["op"] == "moe_gemm":
+        return f"moe_gemm_kernel<{'true' if case['gate_up'] else 'false'}>"
+    if case["op"] in MOE_OPS:
+        return case["op"] + "_kernel"
+    if case["op"] == "wide":
+        bias = "true" if case["bias_2d"] else "false"
+        one = "true" if case["L"] <= 32 else "false"
+        return f"attention_bf16_kernel<192,128,{bias},{one}>"
     if case["op"] == "flash":
         dp = -(-case["D"] // 32) * 32
         t = "float" if case["dtype"] == "float32" else "__nv_bfloat16"
@@ -125,7 +151,7 @@ def kernel_of(case) -> str:
         return f"attention_kernel<float,{-(-dh // 32) * 32},{bias}>"
     dp = next(w for w in (16, 32, 48, 64, 96, 128) if dh <= w)
     one = "true" if case["L"] <= 32 else "false"
-    return f"attention_bf16_kernel<{dp},{bias},{one}>"
+    return f"attention_bf16_kernel<{dp},{dp},{bias},{one}>"
 
 
 def normalize(name: str) -> str:
@@ -154,10 +180,12 @@ SENTINEL = 0x5A           # an output guard's bytes
 
 def guarded(x, shift: int = 0):
     """A copy of ``x`` in the middle of a buffer whose GUARD_BYTES on either
-    side are NaN, ``shift`` elements past a 16-byte boundary: a read past
-    either end of the copy that reaches an output makes it NaN."""
+    side are NaN (-1 for an integer tensor: no expert, row or offset),
+    ``shift`` elements past a 16-byte boundary: a read past either end of
+    the copy that reaches an output makes it NaN (or out of range)."""
     g = GUARD_BYTES // x.element_size()
-    buf = torch.full((x.numel() + 2 * g + shift,), float("nan"),
+    fill = float("nan") if x.is_floating_point() else -1
+    buf = torch.full((x.numel() + 2 * g + shift,), fill,
                      dtype=x.dtype, device=x.device)
     out = buf[g + shift:g + shift + x.numel()].view(x.shape)
     out.copy_(x)
@@ -192,6 +220,22 @@ def launch(att, case, seed):
 
     dtype = getattr(torch, case["dtype"])
     tol = cs.TOL[case["dtype"]]
+    if case["op"] in MOE_OPS:
+        return launch_moe(case, seed)
+    if case["op"] == "wide":
+        B, L, H = case["B"], case["L"], case["H"]
+        q, k, _, bias = cs.make_inputs(B, L, H, case["dh"], dtype,
+                                       case["bias_2d"], seed)
+        v = cs.make_inputs(B, L, H, case["dv"], dtype, case["bias_2d"],
+                           seed + 1)[2]
+        scale = case["dh"] ** -0.5
+        want = att.attention_rows_plain(q, k, v, bias, H, scale=scale)
+        out = GuardedOut(want.shape, dtype)
+        got = att.attention_rows_cuda(*(guarded(x) for x in (q, k, v, bias)),
+                                      H, out=out.tensor, scale=scale)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        return err, tol, out.guards_intact()
     if case["op"] == "gemm":
         from ruart_tpu_torch.ops import gemm
 
@@ -242,6 +286,54 @@ def launch(att, case, seed):
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     return err, tol, out is None or out.guards_intact()
+
+
+def launch_moe(case, seed):
+    """One of the expert layer's kernels from guarded inputs (the grouped
+    product also into a guarded output) against its plain twin on the
+    same values: (error over the output's scale, 1e-2, guards intact)."""
+    import chip_smoke as cs
+    from ruart_tpu_torch.ops import moe
+
+    T, D, W, E, k = (case[n] for n in ("T", "D", "W", "E", "k"))
+    x, logits, bias, wgu, wd, shared, res = cs.moe_inputs(T, D, W, E, k,
+                                                          seed, True)
+    idx, w, counts = moe.route_plain(logits, bias, k, 2.446)
+    offsets, rows, slot_pos = moe.permute_plain(idx, counts)
+    h = moe.grouped_gemm_plain(x, rows, wgu, offsets, True)
+    y = moe.grouped_gemm_plain(h, None, wd, offsets, False)
+    op, intact = case["op"], True
+    if op == "moe_route":
+        got = moe.route_cuda(guarded(logits), guarded(bias), k, 2.446)
+        same = torch.equal(got[0].sort(-1).values, idx.sort(-1).values)
+        err = 0.0 if same and torch.equal(got[2], counts) else 1.0
+        return err, 1e-2, intact
+    if op == "moe_permute":
+        off, r, sp = moe.permute_cuda(guarded(idx), guarded(counts))
+        ok = torch.equal(off, offsets) and torch.equal(
+            r[sp.long()].long(),
+            torch.arange(T, device="cuda").repeat_interleave(k))
+        return (0.0 if ok else 1.0), 1e-2, intact
+    if op == "moe_gemm":
+        gate_up = case["gate_up"]
+        a, wt, want = (x, wgu, h) if gate_up else (h, wd, y)
+        out = GuardedOut(want.shape, torch.bfloat16)
+        moe.grouped_gemm_cuda(guarded(a), guarded(rows) if gate_up else None,
+                              guarded(wt), guarded(offsets), gate_up,
+                              out=out.tensor)
+        got, intact = out.tensor, out.guards_intact()
+    else:
+        want = moe.combine_plain(y, slot_pos, w, shared, res)
+        got = moe.combine_cuda(guarded(y), guarded(slot_pos), guarded(w),
+                               guarded(shared), guarded(res))
+    torch.cuda.synchronize()
+    scale = want.float().abs().max().clamp(min=1e-30)
+    err = float((got.float() - want.float()).abs().max() / scale)
+    return err, 1e-2, intact and out_ok(got)
+
+
+def out_ok(t) -> bool:
+    return bool(torch.isfinite(t.float()).all())
 
 
 def sweep(att, race: bool):
